@@ -11,27 +11,42 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 sources (nvcc, one process per source, in parallel) and
                 prints the build time and ptxas' registers, shared memory
                 and spills.
-  3. kernels -- calls each kernel on the card at the main path's shapes and
+  3. kernels -- calls each kernel on the card at the main paths' shapes and
                 holds it against its plain PyTorch version on the same
                 inputs (float32 without TF32 on both sides); times both with
-                CUDA events (median over repetitions).
-  4. slice   -- the main path at full width, through the entry points a
-                user calls, with every launch count set to 0 just before it
-                and read just after: the LN-LSTM actor-critic (obs 256,
-                hidden 512, 2 layers, 64 actions; random weights from a
-                numpy seed) runs `actor_critic_forward` over a (33, 256)
-                unroll, `ops.vtrace_error` on its logits and values (unit
-                weight and weighted), 64 `actor_step` serving calls at B=256
-                with the state carried, and `ops.vtrace_error` at T=1024,
-                B=4096, N=32 (unit weight and weighted).  Outputs must be
-                finite, of the expected shapes, every kernel must have been
+                CUDA events (median over repetitions).  The LSTM backward
+                kernels run at the train step's shapes (V2 at S=33, B=256,
+                V1 at S=33, B=32, H=512); V2 must be bitwise repeatable; the
+                layer's autograd.Function (stash forward, backward kernels)
+                is held against autograd through the plain forward.
+  4. slice   -- the forward and serving path at full width, through the
+                entry points a user calls, with every launch count set to 0
+                just before it and read just after: the LN-LSTM
+                actor-critic (obs 256, hidden 512, 2 layers, 64 actions;
+                random weights from a numpy seed) runs
+                `actor_critic_forward` over a (33, 256) unroll,
+                `ops.vtrace_error` on its logits and values (unit weight and
+                weighted), 64 `actor_step` serving calls at B=256 with the
+                state carried, and `ops.vtrace_error` at T=1024, B=4096,
+                N=32 (unit weight and weighted).  Outputs must be finite, of
+                the expected shapes, every kernel of the path must have been
                 launched, and each output must agree with the same call's
                 plain PyTorch run on the CPU.  Then ms per forward, per
                 serving step and per V-trace call (host clock around
                 synchronized work).
-  5. profile -- torch.profiler over one more run of each of those three
-                calls: device busy time, idle share of the window and the
-                top kernels by device time.
+  5. train   -- the training path: one `models.make_train_step` step (forward
+                with the stash, V-trace loss, the backward kernels, Adam) at
+                the same full width, T=32, B=256 (the V2 backward), counts
+                set to 0 just before and read just after; the metrics and
+                every parameter's gradient against the same step on the CPU
+                (plain versions); then ms per train step (host clock around
+                synchronized work, median of 7 steps).  A second leg at
+                B=32 routes the backward through V1 and is checked the same
+                way, so every ported kernel launches on one of the paths.
+  6. profile -- torch.profiler over one more run of each of the timed calls
+                (forward, serving loop, V-trace, train step): device busy
+                time, idle share of the window and the top kernels by
+                device time.
 
 Then one `{"kernels": [...]}` line, the nvidia-smi line, and, last, the
 contract line `{"ok": true, "device": {...}}`.  Any failure prints its phase
@@ -69,6 +84,14 @@ F32_FLOP_PER_S = 67e12
 # PyTorch's reduction trees) and in FMA contraction, carried through the
 # recurrences.  The same bound holds the card's path against the CPU's.
 RTOL, ATOL = 1e-4, 1e-4
+# The LSTM backward's outputs (the kernels against their plain versions, the
+# autograd.Function against autograd through the plain forward) add
+# BWD_ATOL_REL times the output's largest |entry| to ATOL: the reverse loop
+# carries every step's rounding into all earlier steps, through dh = dg_pre
+# Wh^T and the LayerNorm backward's 1/std factor, and its parameter sums
+# add all S*B rows in another order, so an entry's error follows its
+# tensor's scale rather than its own size.
+BWD_ATOL_REL = 5e-5
 
 SEED = 20261016
 
@@ -103,9 +126,24 @@ def cuda_ms(fn, reps: int, per_rep: int = 1, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def compare(name, got, want, rtol=RTOL, atol=ATOL) -> dict:
-    """Max abs/rel error of got against want; raises past the tolerance."""
-    abs_err, rel_err, bad = 0.0, 0.0, []
+def host_ms(fn, reps: int) -> float:
+    """Median over `reps` calls of the host-clock time of fn() between two
+    synchronizes, in ms."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times)
+
+
+def compare(name, got, want, rtol=RTOL, atol=ATOL, atol_rel=0.0) -> dict:
+    """Max abs/rel error of got against want, and the largest max|got -
+    want| / max|want| of a pair; raises past the tolerance, |got - want| <=
+    atol + atol_rel * max|want| + rtol * |want| for each pair of tensors."""
+    abs_err, rel_err, scaled_err, bad = 0.0, 0.0, 0.0, []
     for i, (g, w) in enumerate(zip(got, want)):
         g, w = g.detach().double().cpu(), w.detach().double().cpu()
         if g.shape != w.shape or not torch.isfinite(g).all():
@@ -114,12 +152,16 @@ def compare(name, got, want, rtol=RTOL, atol=ATOL) -> dict:
         d = (g - w).abs()
         abs_err = max(abs_err, float(d.max()))
         rel_err = max(rel_err, float((d / w.abs().clamp_min(1e-30)).max()))
-        if not bool((d <= atol + rtol * w.abs()).all()):
+        scale = float(w.abs().max())
+        scaled_err = max(scaled_err, float(d.max()) / max(scale, 1e-30))
+        if not bool((d <= atol + atol_rel * scale + rtol * w.abs()).all()):
             bad.append(i)
-    result = {"max_abs_err": abs_err, "max_rel_err": rel_err}
+    result = {"max_abs_err": abs_err, "max_rel_err": rel_err,
+              "max_err_over_max": scaled_err}
     if bad:
         raise AssertionError(f"{name}: outputs {bad} outside rtol={rtol}, "
-                             f"atol={atol}: {result}")
+                             f"atol={atol} + {atol_rel} * max|want|: "
+                             f"{result}")
     return result
 
 
@@ -162,6 +204,24 @@ def lstm_bound(S, B, H):
                   + S * B * H + 2 * B * H)                   # out
     flops = 2 * S * B * H * G                                # h @ Wh
     return nbytes, flops
+
+
+def lstm_bwd_bound(variant, S, B, H):
+    """(bytes, ops) of the V2 or V1 backward function: each input read once
+    (V2 reads y and c_seq at steps 0..S-2 only), each output written once;
+    V2 does two products with Wh per step (the gh_pre recompute and dh =
+    dg_pre @ Wh^T), V1 one.  LayerNorm and gate math, a few percent of the
+    operations, are not counted."""
+    G = 4 * H
+    if variant == "v2":
+        ctas = (B + 7) // 8
+        return (4 * (S * B * G + 2 * (S - 1) * B * H + S * B * H + H * G
+                     + 5 * G + 4 * B * H                             # in
+                     + 2 * S * B * G + ctas * 3 * G + 2 * B * H),    # out
+                4 * S * B * H * G)
+    return (4 * (2 * S * B * G + 3 * S * B * H + H * G + 2 * G + 2 * B * H
+                 + 2 * S * B * G + 2 * B * H),
+            2 * S * B * H * G)
 
 
 def vtrace_inputs(rng, T, B, dev):
@@ -207,6 +267,24 @@ def phase_kernels(dev) -> dict:
             row["bound_ms"], row["bound_by"] = bound_ms(*lstm_bound(S, B, H))
             rows[f"lstm_layer_fused S={S}"] = row
 
+        # The forward in stash mode, at the train step's unroll.
+        S, B, H = 33, 256, 512
+        args = lstm_inputs(rng, S, B, H, dev)
+        got = kernels.lstm_layer_stash(*args)
+        torch.cuda.synchronize()
+        want = kernels.lstm_layer_stash_plain(*args)
+        row = {"shape": f"S={S},B={B},H={H}",
+               **compare("lstm_layer_stash", got, want)}
+        row["ms"] = cuda_ms(lambda: kernels.lstm_layer_stash(*args), 7,
+                            per_rep=3)
+        row["plain_ms"] = cuda_ms(
+            lambda: kernels.lstm_layer_stash_plain(*args), 5)
+        nbytes, flops = lstm_bound(S, B, H)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes + 4 * S * B * H,
+                                                    flops)
+        rows["lstm_layer_stash S=33"] = row
+        rows.update(bwd_kernel_rows(rng, dev))
+
         # V-trace kernels at the forward's (T, B) and the north-star shape.
         for T, B in ((32, 256), (1024, 4096)):
             is_w, lp, reward, value = vtrace_inputs(rng, T, B, dev)
@@ -241,6 +319,72 @@ def phase_kernels(dev) -> dict:
                 is_w, reward, value, *clips), plain_reps, warmup=1)
             row["bound_ms"], row["bound_by"] = bound_ms(rb, ro)
             rows[f"vtrace_returns_adv T={T}"] = row
+    return rows
+
+
+def bwd_inputs(rng, S, B, H, dev):
+    """The V2 backward's arguments: a stashed forward on the card and
+    numpy-made cotangents."""
+    gxp, wh, glnx, blnx, gln, bln, bias, h0, c0 = fwd = lstm_inputs(
+        rng, S, B, H, dev)
+    y, c_seq, _, _ = kernels.lstm_layer_stash(*fwd)
+    dy, dhn, dcn = (torch.from_numpy(rng.standard_normal(shape,
+                                                         dtype=np.float32))
+                    .to(dev) for shape in ((S, B, H), (B, H), (B, H)))
+    return (gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn,
+            dcn)
+
+
+BWD_TOLERANCE = {"tolerance": {"rtol": RTOL, "atol": ATOL,
+                               "atol_rel_to_max": BWD_ATOL_REL}}
+
+
+def bwd_kernel_rows(rng, dev) -> dict:
+    """Both LSTM backward kernels against their plain versions at the train
+    step's shapes, V2's repeatability, and the layer's autograd.Function
+    against autograd through the plain forward."""
+    rows = {}
+    S, H = 33, 512
+    for name, B in (("lstm_layer_bwd_v2", 256), ("lstm_layer_bwd_v1", 32)):
+        args = bwd_inputs(rng, S, B, H, dev)
+        if name.endswith("v1"):
+            gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn, \
+                dcn = args
+            args = (*kernels.lstm_layer_bwd_v1_streams(
+                gxp, y, c_seq, wh, glnx, blnx, bias, h0, c0), c_seq, dy, wh,
+                gln, bln, dhn, dcn)
+        wrapper = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        got = wrapper(*args)
+        again = wrapper(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        row = {"shape": f"S={S},B={B},H={H}", **BWD_TOLERANCE}
+        if name.endswith("v2"):
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"{name}: repeated runs differ")
+            row["bitwise_repeatable"] = True
+        row.update(compare(name, got, want, atol_rel=BWD_ATOL_REL))
+        row["ms"] = cuda_ms(lambda: wrapper(*args), 7, per_rep=3)
+        row["plain_ms"] = cuda_ms(lambda: plain(*args), 3, warmup=1)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            *lstm_bwd_bound(name[-2:], S, B, H))
+        rows[f"{name} S={S}"] = row
+
+    # The autograd.Function's 9 gradients at the train step's B=256 (V2),
+    # against PyTorch's autograd through the plain forward, on the card.
+    B = 256
+    with torch.inference_mode(False), torch.enable_grad():
+        fwd = [a.clone().requires_grad_() for a in
+               lstm_inputs(rng, S, B, H, dev)]
+        loss = lambda y, hn, cn: ((y * torch.cos(y)).sum() + (hn ** 2).sum()
+                                  + torch.sin(cn).sum())
+        got = torch.autograd.grad(loss(*kernels.lstm_layer_fused(*fwd)), fwd)
+        want = torch.autograd.grad(loss(*kernels.lstm_layer_plain(*fwd)), fwd)
+    rows["lstm_layer autograd.Function S=33"] = {
+        "shape": f"S={S},B={B},H={H}",
+        "vs": "autograd through the plain forward", **BWD_TOLERANCE,
+        **compare("layer grads", got, want, atol_rel=BWD_ATOL_REL)}
     return rows
 
 
@@ -285,6 +429,16 @@ def vtrace_batch(rng, T, B, N, with_target: bool):
 def to_dev(arrays, dev):
     return {k: torch.from_numpy(np.asarray(v)).to(dev)
             for k, v in arrays.items()}
+
+
+SLICE_KERNELS = ("lstm_layer_fused", "vtrace_losses", "vtrace_returns_adv")
+
+
+def check_launched(path, launches, names) -> None:
+    never = [n for n in names if launches[n] < 1]
+    if never:
+        raise AssertionError(f"{path}: kernels of the path never launched: "
+                             f"{never} ({launches})")
 
 
 def run_vtrace(x, target, value):
@@ -365,9 +519,7 @@ def phase_slice(dev) -> dict:
         out = run_slice(params, obs, serve_obs, fwd_x, big_x, dev, gen)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path was never launched: "
-                             f"{launches}")
+    check_launched("slice", launches, SLICE_KERNELS)
 
     shapes = {"logits": (T_FWD + 1, B_FWD, ACTIONS),
               "value": (T_FWD + 1, B_FWD), "h": (LAYERS, B_FWD, HID),
@@ -397,16 +549,6 @@ def phase_slice(dev) -> dict:
                for k in shapes if k != "serve_action"}
 
     # Times, after the counted run: host clock around synchronized work.
-    def host_ms(fn, reps):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - start) * 1e3)
-        return statistics.median(times)
-
     with torch.inference_mode():
         fwd, serve, vtrace = timed_calls(params, obs, serve_obs, big_x, gen,
                                          dev).values()
@@ -423,46 +565,133 @@ def phase_slice(dev) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
-def phase_profile(dev) -> dict:
-    """torch.profiler over one run of each timed call: device busy time
-    (the sum of kernel and copy times on the one stream), the wall time of
-    the window (profiler overhead included) and the top kernels by device
+# ------------------------------------------------------------ phase 5 ----
+
+T_TR = 32
+TRAIN_LEGS = ((256, "lstm_layer_bwd_v2"), (32, "lstm_layer_bwd_v1"))
+TRAIN_TIMED_STEPS = 7
+# Card against CPU for the train step's gradients: each entry is a sum over
+# the (T+1)*B rows of the unroll (and, for the LSTM weights, over the steps
+# of the reverse loop), taken in another order on the two sides, so its
+# rounding scales with the tensor's magnitude, not the entry's: atol is
+# GRAD_ATOL_REL times the tensor's largest entry, rtol is RTOL.
+GRAD_ATOL_REL = 1e-4
+
+
+def train_batch(rng, B):
+    """numpy-made TrainBatch fields: obs (T+1, B, OBS), actions, rewards,
+    behaviour logits."""
+    f = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    return (f(T_TR + 1, B, OBS), rng.integers(0, ACTIONS, (T_TR, B)),
+            f(T_TR, B), f(T_TR, B, ACTIONS))
+
+
+def train_setup(arrays, batch_np, dev):
+    """Params on dev, their Adam(lr=1e-3) train step, and the batch."""
+    params = models.from_jax_params(arrays, device=dev)
+    step = models.make_train_step(
+        models.ActorCriticConfig(OBS, HID, LAYERS, ACTIONS),
+        torch.optim.Adam(params.parameters(), lr=1e-3))
+    batch = models.TrainBatch(*(torch.from_numpy(np.asarray(a)).to(dev)
+                                for a in batch_np))
+    return params, step, batch
+
+
+def phase_train(dev) -> dict:
+    rng = np.random.default_rng(SEED + 2)
+    arrays = model_arrays(rng)
+    cpu = torch.device("cpu")
+    out = {"tolerance": {"metrics": {"rtol": RTOL, "atol": ATOL},
+                         "grads": {"rtol": RTOL, "atol": 0.0,
+                                   "atol_rel_to_max": GRAD_ATOL_REL}}}
+    for B, bwd in TRAIN_LEGS:
+        batch_np = train_batch(rng, B)
+        params, step, batch = train_setup(arrays, batch_np, dev)
+        kernels.reset_launch_counts()
+        metrics = step(params, batch)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        check_launched(f"train B={B}", launches, ("lstm_layer_fused", bwd,
+                                                  "vtrace_losses",
+                                                  "vtrace_returns_adv"))
+        ref_params, ref_step, ref_batch = train_setup(arrays, batch_np, cpu)
+        ref = ref_step(ref_params, ref_batch)
+        leg = {"launches": launches,
+               "metrics": {k: float(v) for k, v in metrics.items()},
+               "metrics_vs_cpu": compare(f"train B={B} metrics",
+                                         list(metrics.values()),
+                                         list(ref.values()))}
+        grads = {}
+        for (name, p), (_, q) in zip(params.named_parameters(),
+                                     ref_params.named_parameters()):
+            grads[name] = {"max_abs_grad": float(q.grad.abs().max()),
+                           **compare(f"train B={B} grad {name}", [p.grad],
+                                     [q.grad], atol=0.0,
+                                     atol_rel=GRAD_ATOL_REL)}
+        leg["grads_vs_cpu"] = grads
+        if B == TRAIN_LEGS[0][0]:
+            leg[f"ms_per_train_step_T{T_TR}_B{B}"] = host_ms(
+                lambda: step(params, batch), TRAIN_TIMED_STEPS)
+            leg["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out[f"B={B}"] = leg
+    return out
+
+
+# ------------------------------------------------------------ phase 6 ----
+
+def profile_one(fn) -> dict:
+    """torch.profiler over one call of fn after a warm-up call: device busy
+    time (the sum of kernel and copy times on the one stream), the wall time
+    of the window (profiler overhead included) and the top kernels by device
     time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    rows = [(e.key, e.count, getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0))
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    rows.sort(key=lambda r: -r[2])
+    busy_ms = sum(r[2] for r in rows) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
+            "top": [{"kernel": k[:80], "count": c, "ms": t / 1e3}
+                    for k, c, t in rows[:10]]}
+
+
+def phase_profile(dev) -> dict:
+    """profile_one over each timed call of the slice, then the train step
+    at B=256."""
     _, params, obs, serve_obs, _, _, _, big_x = slice_inputs(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
     with torch.inference_mode():
         for name, fn in timed_calls(params, obs, serve_obs, big_x, gen,
                                     dev).items():
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                start = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - start) * 1e3
-            rows = [(e.key, e.count,
-                     getattr(e, "self_device_time_total", None)
-                     or getattr(e, "self_cuda_time_total", 0))
-                    for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA]
-            rows.sort(key=lambda r: -r[2])
-            busy_ms = sum(r[2] for r in rows) / 1e3
-            out[name] = {
-                "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-                "top": [{"kernel": k[:80], "count": c, "ms": t / 1e3}
-                        for k, c, t in rows[:8]]}
+            out[name] = profile_one(fn)
+    rng = np.random.default_rng(SEED + 3)
+    B = TRAIN_LEGS[0][0]
+    params, step, batch = train_setup(model_arrays(rng), train_batch(rng, B),
+                                      dev)
+    out[f"train_step_T{T_TR}_B{B}"] = profile_one(lambda: step(params, batch))
     return out
 
 
 KERNELS = (
     ("lstm_layer_fused", "di_hpc_tpu_torch/csrc/lstm_layer.cu",
      "di_hpc_tpu/pallas_kernels/lstm_cell.py:115", "lstm_layer_fused S=33"),
+    ("lstm_layer_bwd_v2", "di_hpc_tpu_torch/csrc/lstm_layer_bwd.cu",
+     "di_hpc_tpu/pallas_kernels/lstm_cell.py:389", "lstm_layer_bwd_v2 S=33"),
+    ("lstm_layer_bwd_v1", "di_hpc_tpu_torch/csrc/lstm_layer_bwd.cu",
+     "di_hpc_tpu/pallas_kernels/lstm_cell.py:276", "lstm_layer_bwd_v1 S=33"),
     ("vtrace_losses", "di_hpc_tpu_torch/csrc/vtrace.cu",
      "di_hpc_tpu/pallas_kernels/rl_scans.py:558", "vtrace_losses T=1024"),
     ("vtrace_returns_adv", "di_hpc_tpu_torch/csrc/vtrace.cu",
@@ -483,6 +712,7 @@ def main() -> int:
     for name, fn in (("device", phase_device), ("build", phase_build),
                      ("kernels", lambda: phase_kernels(dev)),
                      ("slice", lambda: phase_slice(dev)),
+                     ("train", lambda: phase_train(dev)),
                      ("profile", lambda: phase_profile(dev))):
         start = time.perf_counter()
         try:
@@ -495,10 +725,15 @@ def main() -> int:
               "seconds": time.perf_counter() - start, **results[name]})
 
     rows = results["kernels"]
-    launches = results["slice"]["launches"]
+    # Launches on each counted path run: the slice, then the train legs.
+    by_path = {"slice": results["slice"]["launches"],
+               **{f"train {leg}": results["train"][leg]["launches"]
+                  for leg in results["train"] if leg.startswith("B=")}}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name],
+         "launches": sum(counts[name] for counts in by_path.values()),
+         "launches_by_path": {path: counts[name]
+                              for path, counts in by_path.items()},
          "max_abs_err": rows[key]["max_abs_err"], "ms": rows[key]["ms"],
          "plain_ms": rows[key]["plain_ms"], "bound_ms": rows[key]["bound_ms"],
          "bound_by": rows[key]["bound_by"], "library_ms": None,

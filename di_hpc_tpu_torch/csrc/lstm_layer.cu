@@ -1,12 +1,16 @@
 // LN-LSTM layer forward with the whole time loop inside one kernel launch.
 //
-// Replaces di_hpc_tpu/pallas_kernels/lstm_cell.py:_layer_kernel (the
-// forward, stash=False, f32 streams).  Per step t and batch row b:
+// Replaces di_hpc_tpu/pallas_kernels/lstm_cell.py:_layer_kernel (f32
+// streams), with its stash mode: given c_seq, the kernel also writes the
+// cell state of every step for the backward; without it (the serving path
+// and any forward that needs no gradient) that (S, B, H) write is skipped,
+// as the TPU kernel skips it (lstm_cell.py:150-153).  Per step t and batch
+// row b:
 //
 //   gate = LN_x(gxp_t) + bias + LN_h(h @ Wh)      (norm = 1)
 //   gate = gxp_t + bias + h @ Wh                   (norm = 0)
 //   i, f, o = sigmoid, u = tanh (gate order i|f|o|u)
-//   c = f*c + i*u;  h = o*tanh(c);  y_t = h
+//   c = f*c + i*u;  h = o*tanh(c);  y_t = h  [c_seq_t = c]
 //
 // LayerNorm statistics are one pass over the 4H row, var = max(E[x^2] -
 // E[x]^2, 0), exactly as the TPU kernel's _ln_stats; LN_x and the bias act
@@ -23,21 +27,17 @@
 // MB at H=512) does not fit in shared memory, so every CTA streams it from
 // L2 once per step in float4 column strips; h stays in shared memory in a
 // k-major (H, kRows) layout so one k step is two broadcast float4 loads and
-// kRows*4 FMAs per thread.  The (kRows, 4H) gate tile and the gxp_t rows
-// stay in shared memory for the LayerNorm and the gate math.  kRows trades
-// CTAs in flight against L2 traffic for Wh (each CTA reads all of Wh every
-// step); splitting Wh across a thread-block cluster and moving the product
-// to tensor cores are later work.
+// kRows*4 FMAs per thread (lstm_common.cuh:matmul_rows).  The (kRows, 4H)
+// gate tile and the gxp_t rows stay in shared memory for the LayerNorm and
+// the gate math.  kRows trades CTAs in flight against L2 traffic for Wh
+// (each CTA reads all of Wh every step); splitting Wh across a thread-block
+// cluster and moving the product to tensor cores are later work.
 
-#include <cuda_runtime.h>
+#include "lstm_common.cuh"
 
 namespace {
 
-constexpr int kRows = 8;            // batch rows per CTA
-constexpr int kThreads = 512;       // 4 gate columns per thread per strip
-constexpr int kKUnroll = 8;         // Wh rows loaded ahead per thread
-constexpr float kLnEps = 1e-5f;     // utils/constants.py LAYERNORM_EPS
-static_assert(kRows == 8, "fma_rows reads h as two float4 of 4 rows");
+using namespace lstm;
 
 __host__ __device__ constexpr size_t smem_floats(int H) {
   // gh (kRows, 4H) + gx (kRows, 4H) + hT (H, kRows) + c (kRows, H)
@@ -45,31 +45,9 @@ __host__ __device__ constexpr size_t smem_floats(int H) {
   return (size_t)kRows * (2 * 4 * H + 2 * H) + 4 * kRows;
 }
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ void fma_rows(float (&acc)[kRows][4], float4 w,
-                                         const float* hk) {
-  const float4 lo = *reinterpret_cast<const float4*>(hk);
-  const float4 hi = *reinterpret_cast<const float4*>(hk + 4);
-  const float hv[kRows] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-  for (int b = 0; b < kRows; ++b) {
-    acc[b][0] += hv[b] * w.x;
-    acc[b][1] += hv[b] * w.y;
-    acc[b][2] += hv[b] * w.z;
-    acc[b][3] += hv[b] * w.w;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
+// kStash: also write c_seq; the serving path's instantiation has no store
+// and no branch for it.
+template <bool kStash>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_layer_fwd_kernel(const float* __restrict__ gxp,
                       const float* __restrict__ wh,
@@ -81,6 +59,7 @@ lstm_layer_fwd_kernel(const float* __restrict__ gxp,
                       const float* __restrict__ h0,
                       const float* __restrict__ c0,
                       float* __restrict__ y,
+                      float* __restrict__ c_seq,      // kStash only
                       float* __restrict__ hn,
                       float* __restrict__ cn,
                       int S, int B, int H, int norm) {
@@ -112,33 +91,8 @@ lstm_layer_fwd_kernel(const float* __restrict__ gxp,
   __syncthreads();
 
   for (int t = 0; t < S; ++t) {
-    // 1. gh = h @ Wh: each thread owns 4 adjacent gate columns per strip.
-    for (int col = 4 * tid; col < G; col += 4 * kThreads) {
-      float acc[kRows][4];
-#pragma unroll
-      for (int b = 0; b < kRows; ++b)
-        acc[b][0] = acc[b][1] = acc[b][2] = acc[b][3] = 0.f;
-      const float* wcol = wh + col;
-      int k = 0;
-      for (; k + kKUnroll <= H; k += kKUnroll) {
-        float4 w[kKUnroll];
-#pragma unroll
-        for (int u = 0; u < kKUnroll; ++u)
-          w[u] = __ldg(reinterpret_cast<const float4*>(
-              wcol + (size_t)(k + u) * G));
-#pragma unroll
-        for (int u = 0; u < kKUnroll; ++u)
-          fma_rows(acc, w[u], hT_s + (k + u) * kRows);
-      }
-      for (; k < H; ++k)
-        fma_rows(acc,
-                 __ldg(reinterpret_cast<const float4*>(wcol + (size_t)k * G)),
-                 hT_s + k * kRows);
-#pragma unroll
-      for (int b = 0; b < kRows; ++b)
-        *reinterpret_cast<float4*>(gh_s + b * G + col) =
-            make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
-    }
+    // 1. gh = h @ Wh.
+    matmul_rows<1>(hT_s, wh, H, G, gh_s);
     __syncthreads();
 
     // 2. One warp per row: stage gxp_t into shared memory and take the
@@ -153,22 +107,16 @@ lstm_layer_fwd_kernel(const float* __restrict__ gxp,
             ? __ldg(reinterpret_cast<const float4*>(src + col))
             : make_float4(0.f, 0.f, 0.f, 0.f);
         *reinterpret_cast<float4*>(gx_s + b * G + col) = x;
-        sh += (g.x + g.y) + (g.z + g.w);
-        sh2 += (g.x * g.x + g.y * g.y) + (g.z * g.z + g.w * g.w);
-        sx += (x.x + x.y) + (x.z + x.w);
-        sx2 += (x.x * x.x + x.y * x.y) + (x.z * x.z + x.w * x.w);
+        accum_quad(g, sh, sh2);
+        accum_quad(x, sx, sx2);
       }
-      sh = warp_sum(sh);
-      sh2 = warp_sum(sh2);
-      sx = warp_sum(sx);
-      sx2 = warp_sum(sx2);
+      const float2 st_h = finish_stats(sh, sh2, G);
+      const float2 st_x = finish_stats(sx, sx2, G);
       if (lane == 0) {
-        const float inv = 1.0f / (float)G;
-        const float mh = sh * inv, mx = sx * inv;
-        stat_s[b * 4 + 0] = mh;
-        stat_s[b * 4 + 1] = rsqrtf(fmaxf(sh2 * inv - mh * mh, 0.f) + kLnEps);
-        stat_s[b * 4 + 2] = mx;
-        stat_s[b * 4 + 3] = rsqrtf(fmaxf(sx2 * inv - mx * mx, 0.f) + kLnEps);
+        stat_s[b * 4 + 0] = st_h.x;
+        stat_s[b * 4 + 1] = st_h.y;
+        stat_s[b * 4 + 2] = st_x.x;
+        stat_s[b * 4 + 3] = st_x.y;
       }
     }
     __syncthreads();
@@ -199,7 +147,9 @@ lstm_layer_fwd_kernel(const float* __restrict__ gxp,
       c_s[i] = c;
       hT_s[j * kRows + b] = h;
       if (row < B) {
-        y[((size_t)t * B + row) * H + j] = h;
+        const size_t o = ((size_t)t * B + row) * H + j;
+        y[o] = h;
+        if (kStash) c_seq[o] = c;
         if (t == S - 1) {
           hn[(size_t)row * H + j] = h;
           cn[(size_t)row * H + j] = c;
@@ -222,21 +172,24 @@ long long lstm_layer_smem_bytes(int H) {
 int lstm_layer_rows_per_cta(void) { return kRows; }
 
 // gxp (S, B, 4H), wh (H, 4H), the five (4H,) vectors, h0/c0 (B, H) in;
-// y (S, B, H), hn/cn (B, H) out.  All f32, contiguous, gxp and wh 16-byte
-// aligned.  Returns the launch status (cudaSuccess == 0).
+// y (S, B, H), c_seq (S, B, H) or nullptr, hn/cn (B, H) out.  All f32,
+// contiguous, gxp and wh 16-byte aligned.  Returns the launch status
+// (cudaSuccess == 0).
 int lstm_layer_fwd_f32(const float* gxp, const float* wh, const float* glnx,
                        const float* blnx, const float* gln, const float* bln,
                        const float* bias, const float* h0, const float* c0,
-                       float* y, float* hn, float* cn, int S, int B, int H,
-                       int norm, void* stream) {
+                       float* y, float* c_seq, float* hn, float* cn, int S,
+                       int B, int H, int norm, void* stream) {
   const size_t smem = smem_floats(H) * sizeof(float);
+  auto kernel = c_seq != nullptr ? lstm_layer_fwd_kernel<true>
+                                 : lstm_layer_fwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_layer_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + kRows - 1) / kRows);
-  lstm_layer_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, y, hn, cn, S, B, H, norm);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, y, c_seq, hn, cn, S, B, H,
+      norm);
   return (int)cudaGetLastError();
 }
 

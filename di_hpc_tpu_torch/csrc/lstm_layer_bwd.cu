@@ -1,0 +1,508 @@
+// LN-LSTM layer backward: the whole reverse time loop inside one kernel
+// launch, in two variants.
+//
+// V2 replaces di_hpc_tpu/pallas_kernels/lstm_cell.py:_bwd_kernel_v2 (the
+// train step at B >= 64).  Per step t = S-1 .. 0 and batch row b it
+// recomputes the forward from the stashed streams -- gh_pre = h_{t-1} @ Wh
+// (h_{t-1} = y_{t-1}, h0 at t = 0), both LayerNorms (LN_x on the raw gxp),
+// the gates, c_t = f*c_{t-1} + i*u and tanh(c_t) -- then runs
+//
+//   dh = dh_carry + dy_t;  dc = dc_carry + dh*o*(1 - tanh(c_t)^2)
+//   dgate = [dc*u*i(1-i), dc*c_{t-1}*f(1-f), dh*tanh(c_t)*o(1-o), dc*i(1-u^2)]
+//   dgxp_t   = LN_x backward of dgate            (written out)
+//   dg_pre_t = LN_h backward of dgate            (written out)
+//   dh_carry = dg_pre_t @ Wh^T;  dc_carry = dc*f
+//
+// and sums dgamma_h = sum dgate*xhat_h, dgamma_x = sum dgate*xhat_x and
+// sum dgate (which is dbeta_x, dbeta_h and dbias alike) over rows and steps.
+// At the end it writes dh0/dc0.  dWh = sum_t h_{t-1}^T dg_pre_t is left to
+// two matrix products outside, as the JAX package leaves it to XLA
+// (lstm_cell.py:642-643).
+//
+// V1 replaces lstm_cell.py:_bwd_kernel (B < 64): the same cell and LN_h
+// backward and the same carries, but from streams the caller precomputes --
+// the x-side gate gx = LN_x(gxp) + bias and gh_pre = h_{t-1} @ Wh -- and it
+// writes dgate and dg_pre; the LN_x backward, dWh, dgamma/dbeta and dbias
+// are the caller's (lstm_cell.py:658-706).
+//
+// What bounds them on an H100: the f32 products on the FMA pipes -- V2 does
+// two per step (the gh_pre recompute and dh = dg_pre @ Wh^T), 4*S*B*H*4H
+// operations, V1 one.  At S=33, B=256, H=512 V2 does 35.4 GFLOP against
+// ~264 MB of streams: operations bound.
+//
+// Design.  As in the forward (lstm_layer.cu), one CTA owns kRows batch rows
+// for the whole reverse loop, and nothing crosses CTAs inside the loop.  Wh
+// and Wh^T (the caller passes a contiguous transpose, made once per call)
+// stream from L2 in float4 column strips against k-major operand tiles in
+// shared memory, with the forward's own product code
+// (lstm_common.cuh:matmul_rows), so V2's recompute repeats the forward's
+// sums in the forward's order.  dh = dg_pre @ Wh^T has only H output
+// columns, so its K = 4H is split in four slices over the CTA's threads and
+// the four partials are added in a fixed order.  The raw gxp stays in
+// L2 rather than in shared memory: a second (kRows, 4H) tile would take V2
+// past the 227 KB a CTA may have at H = 512.  The TPU kernel accumulates the
+// parameter sums in VMEM blocks revisited across its sequential grid; here
+// each CTA keeps its own sums in shared memory and writes them out once as
+// a (CTAs, 3, 4H) partial, which the caller reduces with torch.sum in a
+// fixed order: no float atomics, so repeated runs are bitwise equal.  Rows
+// past B load zeros for every input (h, c, gxp, dy and the carries), so
+// their dgate is exactly zero and they add nothing to the sums.
+
+#include "lstm_common.cuh"
+
+namespace {
+
+using namespace lstm;
+
+__host__ __device__ constexpr size_t v2_smem_floats(int H) {
+  // gh (kRows, 4H) + dT (4H, kRows) + hT (H, kRows) + dh, dc (kRows, H)
+  // + sums (3, 4H) + stats (kRows, 8)
+  return (size_t)kRows * (2 * 4 * H + 3 * H) + 3 * 4 * H + 8 * kRows;
+}
+
+__host__ __device__ constexpr size_t v1_smem_floats(int H) {
+  // gh (kRows, 4H) + dT (4H, kRows) + dh, dc (kRows, H) + stats (kRows, 4)
+  return (size_t)kRows * (2 * 4 * H + 2 * H) + 4 * kRows;
+}
+
+__device__ __forceinline__ void load_rows8(const float* p, float (&v)[kRows]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+__device__ __forceinline__ void store_rows8(float* p, const float (&v)[kRows]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// Cell backward of one (row, unit) from the gate pre-activations and
+// c_{t-1}: writes the four dgate entries into dT_s (k-major) and, with
+// dgate_out, to global memory; returns the new dc carry.  c_t is recomputed
+// as the forward computed it (V2), or, with c_stash non-null, read from the
+// stash (V1, as the TPU kernel reads it).
+__device__ __forceinline__ float cell_backward(const float (&pre)[4], float cp,
+                                               const float* c_stash, float dh,
+                                               float dc_carry, float* dT_s,
+                                               int H, int j, int b,
+                                               float* dgate_out) {
+  const float si = sigmoid_f(pre[0]);
+  const float sf = sigmoid_f(pre[1]);
+  const float so = sigmoid_f(pre[2]);
+  const float su = tanhf(pre[3]);
+  const float tc = tanhf(c_stash != nullptr ? *c_stash : sf * cp + si * su);
+  const float dc = dc_carry + dh * so * (1.f - tc * tc);
+  const float d[4] = {(dc * su) * si * (1.f - si), (dc * cp) * sf * (1.f - sf),
+                      (dh * tc) * so * (1.f - so), (dc * si) * (1.f - su * su)};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    dT_s[(q * H + j) * kRows + b] = d[q];
+    if (dgate_out != nullptr) dgate_out[q * H] = d[q];
+  }
+  return dc * sf;
+}
+
+// dh carry = dg_pre @ Wh^T (four K slices into scratch, then summed in a
+// fixed order); at t == 0 the carries go out as dh0/dc0.
+__device__ __forceinline__ void carry_dh(const float* dT_s,
+                                         const float* __restrict__ whT,
+                                         float* scratch, float* dh_s,
+                                         const float* dc_s, float* dh0,
+                                         float* dc0, int t, int B, int H,
+                                         int row0) {
+  matmul_rows<4>(dT_s, whT, 4 * H, H, scratch);
+  __syncthreads();
+  const int n = kRows * H;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const float d = ((scratch[i] + scratch[n + i]) + scratch[2 * n + i]) +
+                    scratch[3 * n + i];
+    dh_s[i] = d;
+    const int b = i / H, j = i - b * H, row = row0 + b;
+    if (t == 0 && row < B) {
+      dh0[(size_t)row * H + j] = d;
+      dc0[(size_t)row * H + j] = dc_s[i];
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void init_carries(const float* __restrict__ dhn,
+                                             const float* __restrict__ dcn,
+                                             float* dh_s, float* dc_s, int B,
+                                             int H, int row0) {
+  for (int i = threadIdx.x; i < kRows * H; i += kThreads) {
+    const int b = i / H, j = i - b * H, row = row0 + b;
+    dh_s[i] = row < B ? dhn[(size_t)row * H + j] : 0.f;
+    dc_s[i] = row < B ? dcn[(size_t)row * H + j] : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_layer_bwd_v2_kernel(const float* __restrict__ gxp,
+                         const float* __restrict__ y,
+                         const float* __restrict__ c_seq,
+                         const float* __restrict__ dy,
+                         const float* __restrict__ wh,
+                         const float* __restrict__ whT,
+                         const float* __restrict__ glnx,
+                         const float* __restrict__ blnx,
+                         const float* __restrict__ gln,
+                         const float* __restrict__ bln,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ h0,
+                         const float* __restrict__ c0,
+                         const float* __restrict__ dhn,
+                         const float* __restrict__ dcn,
+                         float* __restrict__ dgxp,
+                         float* __restrict__ dgpre,
+                         float* __restrict__ part,     // (CTAs, 3, 4H)
+                         float* __restrict__ dh0,
+                         float* __restrict__ dc0,
+                         int S, int B, int H, int norm) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int G = 4 * H;
+  float* gh_s = smem;                 // (kRows, G): gh_pre; dh scratch
+  float* dT_s = gh_s + kRows * G;     // (G, kRows): dgate, then dg_pre
+  float* hT_s = dT_s + G * kRows;     // (H, kRows): h_{t-1}
+  float* dh_s = hT_s + H * kRows;     // (kRows, H): dh carry
+  float* dc_s = dh_s + kRows * H;     // (kRows, H): dc carry
+  float* sum_s = dc_s + kRows * H;    // (3, G): dgamma_h, dgamma_x, sum dgate
+  float* st_s = sum_s + 3 * G;        // (kRows, 8): mean_h rstd_h mean_x
+                                      // rstd_x m1_h m2_h m1_x m2_x
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int row0 = blockIdx.x * kRows;
+  const float inv_g = 1.0f / (float)G;
+
+  init_carries(dhn, dcn, dh_s, dc_s, B, H, row0);
+  for (int i = tid; i < 3 * G; i += kThreads) sum_s[i] = 0.f;
+
+  for (int t = S - 1; t >= 0; --t) {
+    const float* x_t = gxp + (size_t)t * B * G;        // rows of step t
+    // A. h_{t-1} into hT_s, k-major.
+    const float* hp = t > 0 ? y + (size_t)(t - 1) * B * H : h0;
+    for (int i = tid; i < kRows * H; i += kThreads) {
+      const int b = i / H, j = i - b * H, row = row0 + b;
+      hT_s[j * kRows + b] = row < B ? hp[(size_t)row * H + j] : 0.f;
+    }
+    __syncthreads();
+
+    // B. gh_pre = h_{t-1} @ Wh, the forward's product.
+    matmul_rows<1>(hT_s, wh, H, G, gh_s);
+    __syncthreads();
+
+    // C. One warp per row: LayerNorm statistics of gh_pre and the raw gxp.
+    if (warp < kRows) {
+      const int b = warp, row = row0 + b;
+      const float* src = x_t + (size_t)row * G;
+      float sh = 0.f, sh2 = 0.f, sx = 0.f, sx2 = 0.f;
+      for (int col = 4 * lane; col < G; col += 4 * 32) {
+        const float4 g = *reinterpret_cast<const float4*>(gh_s + b * G + col);
+        const float4 x = row < B
+            ? __ldg(reinterpret_cast<const float4*>(src + col))
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+        accum_quad(g, sh, sh2);
+        accum_quad(x, sx, sx2);
+      }
+      const float2 st_h = finish_stats(sh, sh2, G);
+      const float2 st_x = finish_stats(sx, sx2, G);
+      if (lane == 0) {
+        st_s[b * 8 + 0] = st_h.x;
+        st_s[b * 8 + 1] = st_h.y;
+        st_s[b * 8 + 2] = st_x.x;
+        st_s[b * 8 + 3] = st_x.y;
+      }
+    }
+    __syncthreads();
+
+    // D. Recompute the gates and run the cell backward, one (row, unit)
+    //    per item; dgate into dT_s.
+    const float* cp_t = t > 0 ? c_seq + (size_t)(t - 1) * B * H : c0;
+    for (int i = tid; i < kRows * H; i += kThreads) {
+      const int b = i / H, j = i - b * H, row = row0 + b;
+      const bool valid = row < B;
+      const float* st = st_s + b * 8;
+      float pre[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = q * H + j;
+        float xg = valid ? __ldg(x_t + (size_t)row * G + col) : 0.f;
+        float hg = gh_s[b * G + col];
+        if (norm) {
+          xg = (xg - st[2]) * st[3] * __ldg(glnx + col) + __ldg(blnx + col);
+          hg = (hg - st[0]) * st[1] * __ldg(gln + col) + __ldg(bln + col);
+        }
+        pre[q] = (xg + __ldg(bias + col)) + hg;
+      }
+      const float cp = valid ? cp_t[(size_t)row * H + j] : 0.f;
+      const float dh =
+          dh_s[i] + (valid ? dy[((size_t)t * B + row) * H + j] : 0.f);
+      dc_s[i] = cell_backward(pre, cp, nullptr, dh, dc_s[i], dT_s, H, j, b,
+                              nullptr);
+    }
+    __syncthreads();
+
+    // E. LayerNorm backward row means, one warp per row:
+    //    m1 = mean(dgate*gamma), m2 = mean(dgate*gamma*xhat), both sides.
+    if (norm && warp < kRows) {
+      const int b = warp, row = row0 + b;
+      const float* st = st_s + b * 8;
+      float s1 = 0.f, s2 = 0.f, s1x = 0.f, s2x = 0.f;
+      for (int col = lane; col < G; col += 32) {
+        const float dg = dT_s[col * kRows + b];
+        const float xh = (gh_s[b * G + col] - st[0]) * st[1];
+        const float xv = row < B ? __ldg(x_t + (size_t)row * G + col) : 0.f;
+        const float xx = (xv - st[2]) * st[3];
+        const float a = dg * __ldg(gln + col), ax = dg * __ldg(glnx + col);
+        s1 += a;
+        s2 += a * xh;
+        s1x += ax;
+        s2x += ax * xx;
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      s1x = warp_sum(s1x);
+      s2x = warp_sum(s2x);
+      if (lane == 0) {
+        st_s[b * 8 + 4] = s1 * inv_g;
+        st_s[b * 8 + 5] = s2 * inv_g;
+        st_s[b * 8 + 6] = s1x * inv_g;
+        st_s[b * 8 + 7] = s2x * inv_g;
+      }
+    }
+    __syncthreads();
+
+    // F. One column per item: dgxp_t and dg_pre_t out, dg_pre kept in dT_s
+    //    for the dh product, the parameter sums added.
+    for (int col = tid; col < G; col += kThreads) {
+      float dg[kRows];
+      load_rows8(dT_s + col * kRows, dg);
+      const float g_h = norm ? __ldg(gln + col) : 1.f;
+      const float g_x = norm ? __ldg(glnx + col) : 1.f;
+      float a_h = 0.f, a_x = 0.f, a_s = 0.f;
+#pragma unroll
+      for (int b = 0; b < kRows; ++b) {
+        const int row = row0 + b;
+        const bool valid = row < B;
+        const size_t o = ((size_t)t * B + row) * G + col;
+        const float* st = st_s + b * 8;
+        float gp = dg[b], gxo = dg[b];
+        a_s += dg[b];
+        if (norm) {
+          const float xh = (gh_s[b * G + col] - st[0]) * st[1];
+          const float xx = ((valid ? __ldg(gxp + o) : 0.f) - st[2]) * st[3];
+          gp = st[1] * (dg[b] * g_h - st[4] - xh * st[5]);
+          gxo = st[3] * (dg[b] * g_x - st[6] - xx * st[7]);
+          a_h += dg[b] * xh;
+          a_x += dg[b] * xx;
+        }
+        if (valid) {
+          dgpre[o] = gp;
+          dgxp[o] = gxo;
+        }
+        dg[b] = gp;
+      }
+      store_rows8(dT_s + col * kRows, dg);
+      sum_s[col] += a_h;
+      sum_s[G + col] += a_x;
+      sum_s[2 * G + col] += a_s;
+    }
+    __syncthreads();
+
+    // G. dh carry = dg_pre @ Wh^T; dh0/dc0 out at t = 0.
+    carry_dh(dT_s, whT, gh_s, dh_s, dc_s, dh0, dc0, t, B, H, row0);
+  }
+
+  float* out = part + (size_t)blockIdx.x * 3 * G;
+  for (int i = tid; i < 3 * G; i += kThreads) out[i] = sum_s[i];
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_layer_bwd_v1_kernel(const float* __restrict__ gx,
+                         const float* __restrict__ ghp,
+                         const float* __restrict__ c_prev,
+                         const float* __restrict__ c_seq,
+                         const float* __restrict__ dy,
+                         const float* __restrict__ whT,
+                         const float* __restrict__ gln,
+                         const float* __restrict__ bln,
+                         const float* __restrict__ dhn,
+                         const float* __restrict__ dcn,
+                         float* __restrict__ dgate,
+                         float* __restrict__ dgpre,
+                         float* __restrict__ dh0,
+                         float* __restrict__ dc0,
+                         int S, int B, int H, int norm) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int G = 4 * H;
+  float* gh_s = smem;                 // (kRows, G): gh_pre; dh scratch
+  float* dT_s = gh_s + kRows * G;     // (G, kRows): dgate, then dg_pre
+  float* dh_s = dT_s + G * kRows;     // (kRows, H): dh carry
+  float* dc_s = dh_s + kRows * H;     // (kRows, H): dc carry
+  float* st_s = dc_s + kRows * H;     // (kRows, 4): mean rstd m1 m2
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int row0 = blockIdx.x * kRows;
+  const float inv_g = 1.0f / (float)G;
+
+  init_carries(dhn, dcn, dh_s, dc_s, B, H, row0);
+
+  for (int t = S - 1; t >= 0; --t) {
+    // C. One warp per row: stage gh_pre_t and take its statistics.
+    if (warp < kRows) {
+      const int b = warp, row = row0 + b;
+      const float* src = ghp + ((size_t)t * B + row) * G;
+      float sh = 0.f, sh2 = 0.f;
+      for (int col = 4 * lane; col < G; col += 4 * 32) {
+        const float4 g = row < B
+            ? __ldg(reinterpret_cast<const float4*>(src + col))
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(gh_s + b * G + col) = g;
+        accum_quad(g, sh, sh2);
+      }
+      const float2 st_h = finish_stats(sh, sh2, G);
+      if (lane == 0) {
+        st_s[b * 4 + 0] = st_h.x;
+        st_s[b * 4 + 1] = st_h.y;
+      }
+    }
+    __syncthreads();
+
+    // D. gate = gx + LN_h(gh_pre); cell backward, dgate out and into dT_s.
+    for (int i = tid; i < kRows * H; i += kThreads) {
+      const int b = i / H, j = i - b * H, row = row0 + b;
+      const bool valid = row < B;
+      const float mh = st_s[b * 4 + 0], rh = st_s[b * 4 + 1];
+      const size_t og = ((size_t)t * B + row) * G + j;
+      const size_t oh = ((size_t)t * B + row) * H + j;
+      float pre[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = q * H + j;
+        float hg = gh_s[b * G + col];
+        if (norm) hg = (hg - mh) * rh * __ldg(gln + col) + __ldg(bln + col);
+        pre[q] = (valid ? __ldg(gx + og + q * H) : 0.f) + hg;
+      }
+      const float zero = 0.f;
+      const float cp = valid ? c_prev[oh] : 0.f;
+      const float dh = dh_s[i] + (valid ? dy[oh] : 0.f);
+      dc_s[i] = cell_backward(pre, cp, valid ? c_seq + oh : &zero, dh,
+                              dc_s[i], dT_s, H, j, b,
+                              valid ? dgate + og : nullptr);
+    }
+    __syncthreads();
+
+    // E. LN_h backward row means (norm only), one warp per row.
+    if (norm && warp < kRows) {
+      const int b = warp;
+      const float mh = st_s[b * 4 + 0], rh = st_s[b * 4 + 1];
+      float s1 = 0.f, s2 = 0.f;
+      for (int col = lane; col < G; col += 32) {
+        const float a = dT_s[col * kRows + b] * __ldg(gln + col);
+        s1 += a;
+        s2 += a * ((gh_s[b * G + col] - mh) * rh);
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (lane == 0) {
+        st_s[b * 4 + 2] = s1 * inv_g;
+        st_s[b * 4 + 3] = s2 * inv_g;
+      }
+    }
+    __syncthreads();
+
+    // F. One column per item: dg_pre_t out and kept in dT_s.
+    for (int col = tid; col < G; col += kThreads) {
+      float dg[kRows];
+      load_rows8(dT_s + col * kRows, dg);
+      if (norm) {
+        const float g_h = __ldg(gln + col);
+#pragma unroll
+        for (int b = 0; b < kRows; ++b) {
+          const float* st = st_s + b * 4;
+          const float xh = (gh_s[b * G + col] - st[0]) * st[1];
+          dg[b] = st[1] * (dg[b] * g_h - st[2] - xh * st[3]);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kRows; ++b)
+        if (row0 + b < B) dgpre[((size_t)t * B + row0 + b) * G + col] = dg[b];
+      store_rows8(dT_s + col * kRows, dg);
+    }
+    __syncthreads();
+
+    // G. dh carry = dg_pre @ Wh^T; dh0/dc0 out at t = 0.
+    carry_dh(dT_s, whT, gh_s, dh_s, dc_s, dh0, dc0, t, B, H, row0);
+  }
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one CTA of each variant needs at hidden size H.
+long long lstm_layer_bwd_v2_smem_bytes(int H) {
+  return (long long)(v2_smem_floats(H) * sizeof(float));
+}
+
+long long lstm_layer_bwd_v1_smem_bytes(int H) {
+  return (long long)(v1_smem_floats(H) * sizeof(float));
+}
+
+// V2.  gxp (S, B, 4H), y, c_seq, dy (S, B, H), wh (H, 4H), whT (4H, H) its
+// contiguous transpose, the five (4H,) vectors, h0/c0/dhn/dcn (B, H) in;
+// dgxp, dgpre (S, B, 4H), part (ceil(B/8), 3, 4H), dh0/dc0 (B, H) out.
+// All f32, contiguous, H % 4 == 0, wh/whT 16-byte aligned.  Returns the
+// launch status (cudaSuccess == 0).
+int lstm_layer_bwd_v2_f32(const float* gxp, const float* y,
+                          const float* c_seq, const float* dy,
+                          const float* wh, const float* whT,
+                          const float* glnx, const float* blnx,
+                          const float* gln, const float* bln,
+                          const float* bias, const float* h0, const float* c0,
+                          const float* dhn, const float* dcn, float* dgxp,
+                          float* dgpre, float* part, float* dh0, float* dc0,
+                          int S, int B, int H, int norm, void* stream) {
+  const size_t smem = v2_smem_floats(H) * sizeof(float);
+  const int err = set_smem(lstm_layer_bwd_v2_kernel, smem);
+  if (err != 0) return err;
+  const dim3 grid((B + kRows - 1) / kRows);
+  lstm_layer_bwd_v2_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      gxp, y, c_seq, dy, wh, whT, glnx, blnx, gln, bln, bias, h0, c0, dhn,
+      dcn, dgxp, dgpre, part, dh0, dc0, S, B, H, norm);
+  return (int)cudaGetLastError();
+}
+
+// V1.  gx, gh_pre (S, B, 4H), c_prev, c_seq, dy (S, B, H), whT (4H, H),
+// gln/bln (4H,), dhn/dcn (B, H) in; dgate, dgpre (S, B, 4H), dh0/dc0 (B, H)
+// out.  Same conventions as V2.
+int lstm_layer_bwd_v1_f32(const float* gx, const float* ghp,
+                          const float* c_prev, const float* c_seq,
+                          const float* dy, const float* whT, const float* gln,
+                          const float* bln, const float* dhn, const float* dcn,
+                          float* dgate, float* dgpre, float* dh0, float* dc0,
+                          int S, int B, int H, int norm, void* stream) {
+  const size_t smem = v1_smem_floats(H) * sizeof(float);
+  const int err = set_smem(lstm_layer_bwd_v1_kernel, smem);
+  if (err != 0) return err;
+  const dim3 grid((B + kRows - 1) / kRows);
+  lstm_layer_bwd_v1_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      gx, ghp, c_prev, c_seq, dy, whT, gln, bln, dhn, dcn, dgate, dgpre, dh0,
+      dc0, S, B, H, norm);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

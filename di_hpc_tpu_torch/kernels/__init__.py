@@ -4,10 +4,22 @@ di_hpc_tpu.pallas_kernels for the kernels ported so far.
 
 Each wrapper runs its plain version when every tensor lies on the CPU,
 launches its kernel for CUDA tensors, and raises on what the kernel cannot
-take.  `wrapper.launches` counts the kernel's launches.
+take.  `wrapper.launches` counts the kernel's launches (the forward layer
+kernel counts on `lstm_layer_fused`, with or without its stash).
 """
 
-from .lstm_cell import lstm_layer_fused, lstm_layer_plain
+from .lstm_cell import (
+    V2_MIN_BATCH,
+    lstm_layer_bwd_v1,
+    lstm_layer_bwd_v1_plain,
+    lstm_layer_bwd_v1_streams,
+    lstm_layer_bwd_v2,
+    lstm_layer_bwd_v2_plain,
+    lstm_layer_fused,
+    lstm_layer_plain,
+    lstm_layer_stash,
+    lstm_layer_stash_plain,
+)
 from .rl_scans import (
     vtrace_losses,
     vtrace_losses_plain,
@@ -15,7 +27,8 @@ from .rl_scans import (
     vtrace_returns_adv_plain,
 )
 
-KERNEL_WRAPPERS = (lstm_layer_fused, vtrace_losses, vtrace_returns_adv)
+KERNEL_WRAPPERS = (lstm_layer_fused, lstm_layer_bwd_v2, lstm_layer_bwd_v1,
+                   vtrace_losses, vtrace_returns_adv)
 
 
 def reset_launch_counts() -> None:

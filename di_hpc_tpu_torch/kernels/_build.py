@@ -5,8 +5,9 @@ Every `di_hpc_tpu_torch/csrc/*.cu` is compiled for Hopper (`sm_90a`) by
 `build/torch_kernels/` at the repository root; the library is then loaded
 with `ctypes`.  Each source compiles in its own `nvcc` process, all started
 together, and one more `nvcc` links the objects.  The library's name carries
-a hash of the sources and flags, so an edited source builds anew.  A failed
-build raises with nvcc's output; nothing falls back.
+a hash of the sources, the `*.cuh` headers they share and the flags, so an
+edited source builds anew.  A failed build raises with nvcc's output;
+nothing falls back.
 
 Nothing here runs at import: the CPU tests import every module, and `nvcc`
 is only looked for when a kernel is first launched.
@@ -33,9 +34,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every exported function: name -> (restype, argtypes).
 _SIGNATURES = {
-    "lstm_layer_fwd_f32": (_i, [_p] * 12 + [_i] * 4 + [_p]),
+    "lstm_layer_fwd_f32": (_i, [_p] * 13 + [_i] * 4 + [_p]),
     "lstm_layer_smem_bytes": (ctypes.c_longlong, [_i]),
     "lstm_layer_rows_per_cta": (_i, []),
+    "lstm_layer_bwd_v2_f32": (_i, [_p] * 20 + [_i] * 4 + [_p]),
+    "lstm_layer_bwd_v2_smem_bytes": (ctypes.c_longlong, [_i]),
+    "lstm_layer_bwd_v1_f32": (_i, [_p] * 14 + [_i] * 4 + [_p]),
+    "lstm_layer_bwd_v1_smem_bytes": (ctypes.c_longlong, [_i]),
     "vtrace_losses_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_p]),
     "vtrace_returns_adv_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_p]),
     "dihpc_error_string": (ctypes.c_char_p, [_i]),
@@ -90,7 +95,7 @@ def build() -> Library:
     """Compile (unless this exact build exists) and load the library."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     tag = digest.hexdigest()[:16]
@@ -159,14 +164,3 @@ def check_kernel_inputs(name: str, tensors: dict, aligned=()) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
         if arg in aligned and t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
-
-
-def forward_only(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels of this slice have no backward yet: refuse to cut a
-    gradient silently."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward-only; its backward belongs "
-            f"to the training slice in ROADMAP.md.  Call it under "
-            f"torch.no_grad(), or on CPU tensors for autograd through the "
-            f"plain version.")

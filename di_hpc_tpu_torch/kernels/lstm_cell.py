@@ -1,16 +1,29 @@
-"""Whole-layer LN-LSTM forward: the hand-written Hopper kernel
-(csrc/lstm_layer.cu) and its plain PyTorch version.
+"""Whole-layer LN-LSTM: the hand-written Hopper kernels (csrc/lstm_layer.cu,
+csrc/lstm_layer_bwd.cu), their plain PyTorch versions, and the
+torch.autograd.Function that joins forward and backward.
 
-Counterpart of the forward of di_hpc_tpu/pallas_kernels/lstm_cell.py
-(`lstm_layer_fused`, `_layer_kernel`), same arguments and the same function:
-the x-side LayerNorm and the bias act on the RAW x @ Wx projection, and both
-LayerNorms take one-pass statistics clamped at zero variance.  The TPU
-kernel's dispatch gates (VMEM budget, H % 128, S >= 8) are facts about the
-TPU and are not carried over: the CUDA kernel takes any S >= 1 -- S = 1 is
-the serving step -- and any H whose shared-memory plan fits one CTA.
+Counterpart of di_hpc_tpu/pallas_kernels/lstm_cell.py, same arguments and
+the same functions:
 
-This slice is forward-only: the c_seq stash, bf16 streams and the backward
-kernels come with the training slice (ROADMAP.md).
+  - `lstm_layer_fused` ~ `lstm_layer_fused` with its custom VJP: the x-side
+    LayerNorm and the bias act on the RAW x @ Wx projection, and both
+    LayerNorms take one-pass statistics clamped at zero variance.  When a
+    gradient is needed it runs `_LayerFunction`: the forward in stash mode
+    (`lstm_layer_stash`, also writing the cell-state sequence), and a
+    backward through `lstm_layer_bwd_v2` (B >= 64) or `lstm_layer_bwd_v1`
+    (B < 64), as `_layer_bwd` routes.  The rest of the backward is plain
+    tensor code on either device, as the JAX package leaves it to XLA.
+  - `lstm_layer_bwd_v2` ~ `_bwd_impl_v2` (`_bwd_kernel_v2`): the reverse
+    loop that recomputes gh_pre = h_{t-1} @ Wh, both LayerNorms, the gates
+    and c_t, and returns d(gxp), d(gh_pre) and the parameter sums.
+  - `lstm_layer_bwd_v1` ~ `_bwd_impl` (`_bwd_kernel`): the reverse loop over
+    precomputed gx and gh_pre streams, returning d(gate) and d(gh_pre).
+
+The TPU kernels' dispatch gates (VMEM budgets, H % 128, S >= 8) are facts
+about the TPU and are not carried over: the CUDA kernels take any S >= 1 --
+S = 1 is the serving step -- and any H whose shared-memory plan fits one
+CTA (the backward kernels also need H % 4 == 0).  The forward runs
+float32 streams only; bf16 streams are the next slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,7 +33,16 @@ import torch
 from ..utils.constants import LAYERNORM_EPS
 from . import _build
 
-__all__ = ["lstm_layer_fused", "lstm_layer_plain"]
+__all__ = [
+    "lstm_layer_fused", "lstm_layer_plain", "lstm_layer_stash",
+    "lstm_layer_stash_plain", "lstm_layer_bwd_v2", "lstm_layer_bwd_v2_plain",
+    "lstm_layer_bwd_v1", "lstm_layer_bwd_v1_plain",
+    "lstm_layer_bwd_v1_streams", "V2_MIN_BATCH",
+]
+
+# The backward runs V2 from this batch size up, as lstm_cell.py:_bwd_fits_v2
+# routes (its VMEM half is a TPU fact and is not carried over).
+V2_MIN_BATCH = 64
 
 
 def _ln_stats(x: torch.Tensor):
@@ -36,25 +58,61 @@ def _ln(x, gamma, beta):
     return (x - mean) * rstd * gamma + beta
 
 
-def lstm_layer_plain(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0,
-                     norm: bool = True):
-    """The kernel's function in plain PyTorch (ordinary autograd).
-    Returns (y (S, B, H), h_n (B, H), c_n (B, H))."""
+def _ln_bwd(dy, gamma, xhat, rstd):
+    """LayerNorm backward over the last axis, from the normalized input."""
+    dxhat = dy * gamma
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    return rstd * (dxhat - m1 - xhat * m2)
+
+
+def _gates(gate, H):
+    sfo = torch.sigmoid(gate[..., :3 * H])
+    return (sfo[..., :H], sfo[..., H:2 * H], sfo[..., 2 * H:3 * H],
+            torch.tanh(gate[..., 3 * H:]))
+
+
+# ---------------------------------------------------------------- forward --
+
+def lstm_layer_stash_plain(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0,
+                           norm: bool = True):
+    """The forward kernel's function in plain PyTorch (ordinary autograd).
+    Returns (y (S, B, H), c_seq (S, B, H), h_n (B, H), c_n (B, H))."""
     H = wh.shape[0]
     h, c = h0, c0
-    ys = []
+    ys, cs = [], []
     for t in range(gxp.shape[0]):
         gx = _ln(gxp[t], glnx, blnx) + bias if norm else gxp[t] + bias
         gh = h @ wh
         if norm:
             gh = _ln(gh, gln, bln)
-        gate = gx + gh
-        sfo = torch.sigmoid(gate[:, :3 * H])
-        u = torch.tanh(gate[:, 3 * H:])
-        c = sfo[:, H:2 * H] * c + sfo[:, :H] * u
-        h = sfo[:, 2 * H:3 * H] * torch.tanh(c)
+        si, sf, so, su = _gates(gx + gh, H)
+        c = sf * c + si * su
+        h = so * torch.tanh(c)
         ys.append(h)
-    return torch.stack(ys), h, c
+        cs.append(c)
+    return torch.stack(ys), torch.stack(cs), h, c
+
+
+def lstm_layer_plain(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0,
+                     norm: bool = True):
+    """`lstm_layer_stash_plain` without the cell-state sequence.
+    Returns (y (S, B, H), h_n (B, H), c_n (B, H))."""
+    y, _, hn, cn = lstm_layer_stash_plain(gxp, wh, glnx, blnx, gln, bln,
+                                          bias, h0, c0, norm)
+    return y, hn, cn
+
+
+def lstm_layer_stash(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0,
+                     norm: bool = True):
+    """The forward in stash mode: (y, c_seq, h_n, c_n), where c_seq (S, B,
+    H) is the cell state after every step (lstm_cell.py:_layer_impl with
+    stash=True).  CPU tensors run the plain version; CUDA tensors launch the
+    forward kernel (counted in `lstm_layer_fused.launches`) or raise."""
+    args = (gxp, wh, glnx, blnx, gln, bln, bias, h0, c0)
+    if _build.on_cpu(*args):
+        return lstm_layer_stash_plain(*args, norm=norm)
+    return _lstm_layer_cuda(*args, norm=norm, stash=True)
 
 
 def lstm_layer_fused(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0,
@@ -70,25 +128,43 @@ def lstm_layer_fused(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0,
       bias: (4H,) gate bias.
       h0, c0: (B, H) initial state.
 
-    CPU tensors run `lstm_layer_plain`; CUDA tensors launch the kernel
-    (float32, contiguous) or raise.  Returns (y (S, B, H), h_n, c_n).
+    CPU tensors run the plain version; CUDA tensors launch the kernels
+    (float32, contiguous) or raise.  When grad is enabled and an input
+    requires it, the call goes through `_LayerFunction` on either device,
+    whose backward is the hand-derived one (the kernels on the card, their
+    plain versions on the CPU); otherwise the forward runs without the
+    stash.  Returns (y (S, B, H), h_n, c_n).
     """
     args = (gxp, wh, glnx, blnx, gln, bln, bias, h0, c0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _LayerFunction.apply(*args, norm)
     if _build.on_cpu(*args):
         return lstm_layer_plain(*args, norm=norm)
-    return _lstm_layer_cuda(*args, norm=norm)
+    y, _, hn, cn = _lstm_layer_cuda(*args, norm=norm, stash=False)
+    return y, hn, cn
 
 
 lstm_layer_fused.launches = 0
 
 
-def _lstm_layer_cuda(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, norm):
-    name = "lstm_layer_fused"
-    names = ("gxp", "wh", "glnx", "blnx", "gln", "bln", "bias", "h0", "c0")
-    args = (gxp, wh, glnx, blnx, gln, bln, bias, h0, c0)
-    _build.check_kernel_inputs(name, dict(zip(names, args)),
-                               aligned=("gxp", "wh"))
-    _build.forward_only(name, *args)
+def _expect_shapes(name, shapes: dict) -> None:
+    """shapes: argument name -> (tensor, expected shape)."""
+    for arg, (t, want) in shapes.items():
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"{name}: {arg} must be {tuple(want)}; got "
+                             f"{tuple(t.shape)}")
+
+
+def _check_smem(name, nbytes, H, device) -> None:
+    props = torch.cuda.get_device_properties(device)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    if nbytes > limit:
+        raise ValueError(f"{name}: H={H} needs {nbytes} bytes of shared "
+                         f"memory per CTA, over this card's {limit}")
+
+
+def _layer_dims(name, gxp, wh):
+    """(S, B, H) of a (S, B, 4H) stream and (H, 4H) weights, or raise."""
     if gxp.ndim != 3 or wh.ndim != 2:
         raise ValueError(f"{name}: gxp must be (S, B, 4H) and wh (H, 4H); got "
                          f"{tuple(gxp.shape)} and {tuple(wh.shape)}")
@@ -98,30 +174,281 @@ def _lstm_layer_cuda(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, norm):
         raise ValueError(f"{name}: gxp {tuple(gxp.shape)} and wh "
                          f"{tuple(wh.shape)} must be (S>=1, B>=1, 4H) and "
                          f"(H, 4H)")
-    for arg, t in zip(names[2:7], args[2:7]):
-        if tuple(t.shape) != (G,):
-            raise ValueError(f"{name}: {arg} must be ({G},); got "
-                             f"{tuple(t.shape)}")
-    for arg, t in (("h0", h0), ("c0", c0)):
-        if tuple(t.shape) != (B, H):
-            raise ValueError(f"{name}: {arg} must be ({B}, {H}); got "
-                             f"{tuple(t.shape)}")
+    return S, B, H
+
+
+def _launch(name, fn, device, *args) -> None:
+    """Call a C launch function on the current stream of `device` and raise
+    on a refused launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                      for a in args), stream)
+    _build.check_status(name, status)
+
+
+def _lstm_layer_cuda(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, norm,
+                     stash):
+    name = "lstm_layer_fused"
+    names = ("gxp", "wh", "glnx", "blnx", "gln", "bln", "bias", "h0", "c0")
+    args = (gxp, wh, glnx, blnx, gln, bln, bias, h0, c0)
+    _build.check_kernel_inputs(name, dict(zip(names, args)),
+                               aligned=("gxp", "wh"))
+    S, B, H = _layer_dims(name, gxp, wh)
+    G = 4 * H
+    _expect_shapes(name, {**{n: (t, (G,)) for n, t in
+                             zip(names[2:7], args[2:7])},
+                          "h0": (h0, (B, H)), "c0": (c0, (B, H))})
     lib = _build.library().cdll
-    smem = lib.lstm_layer_smem_bytes(H)
-    props = torch.cuda.get_device_properties(gxp.device)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    if smem > limit:
-        raise ValueError(f"{name}: H={H} needs {smem} bytes of shared memory "
-                         f"per CTA, over this card's {limit}")
+    _check_smem(name, lib.lstm_layer_smem_bytes(H), H, gxp.device)
 
     y = torch.empty((S, B, H), dtype=gxp.dtype, device=gxp.device)
+    c_seq = torch.empty_like(y) if stash else None
     hn = torch.empty((B, H), dtype=gxp.dtype, device=gxp.device)
     cn = torch.empty_like(hn)
-    with torch.cuda.device(gxp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.lstm_layer_fwd_f32(
-            *(t.data_ptr() for t in args), y.data_ptr(), hn.data_ptr(),
-            cn.data_ptr(), S, B, H, int(bool(norm)), stream)
-    _build.check_status(name, status)
+    _launch(name, lib.lstm_layer_fwd_f32, gxp.device, *args, y,
+            c_seq if stash else None, hn, cn, S, B, H, int(bool(norm)))
     lstm_layer_fused.launches += 1
-    return y, hn, cn
+    return y, c_seq, hn, cn
+
+
+# --------------------------------------------------------------- backward --
+
+def lstm_layer_bwd_v2_plain(gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln,
+                            bias, h0, c0, dhn, dcn, norm: bool = True):
+    """The V2 backward kernel's function, written out in plain PyTorch (the
+    hand-derived formulas, no autograd): the reverse loop recomputes
+    gh_pre = h_{t-1} @ Wh, both LayerNorms, the gates and c_t from the
+    stashed y and c_seq, runs the cell, LN_x and LN_h backward and carries
+    dh = d(gh_pre) @ Wh^T, dc = dc * f.
+
+    Returns (dgxp (S, B, 4H), dg_pre (S, B, 4H), dgamma_h (4H,),
+    dgamma_x (4H,), sum of dgate (4H,), dh0 (B, H), dc0 (B, H)), as
+    lstm_cell.py:_bwd_impl_v2 (whose sums are (1, 4H))."""
+    S, B, G = gxp.shape
+    H = G // 4
+    dgxp, dg_pre_seq = torch.empty_like(gxp), torch.empty_like(gxp)
+    dgln, dglnx, dsum = (gxp.new_zeros(G) for _ in range(3))
+    dh, dc = dhn, dcn
+    for t in range(S - 1, -1, -1):
+        h_prev = y[t - 1] if t else h0
+        c_prev = c_seq[t - 1] if t else c0
+        gh_pre = h_prev @ wh
+        x = gxp[t]
+        if norm:
+            mean, rstd = _ln_stats(gh_pre)
+            xhat = (gh_pre - mean) * rstd
+            meanx, rstdx = _ln_stats(x)
+            xhatx = (x - meanx) * rstdx
+            gate = (xhatx * glnx + blnx + bias) + (xhat * gln + bln)
+        else:
+            gate = (x + bias) + gh_pre
+        si, sf, so, su = _gates(gate, H)
+        tc = torch.tanh(sf * c_prev + si * su)
+        dh = dh + dy[t]
+        dc = dc + dh * so * (1.0 - tc * tc)
+        dgate = torch.cat([(dc * su) * si * (1.0 - si),
+                           (dc * c_prev) * sf * (1.0 - sf),
+                           (dh * tc) * so * (1.0 - so),
+                           (dc * si) * (1.0 - su * su)], dim=-1)
+        if norm:
+            dgxp[t] = _ln_bwd(dgate, glnx, xhatx, rstdx)
+            dglnx += (dgate * xhatx).sum(0)
+            dg_pre = _ln_bwd(dgate, gln, xhat, rstd)
+            dgln += (dgate * xhat).sum(0)
+        else:
+            dgxp[t] = dgate
+            dg_pre = dgate
+        dsum += dgate.sum(0)
+        dg_pre_seq[t] = dg_pre
+        dh = dg_pre @ wh.t()
+        dc = dc * sf
+    return dgxp, dg_pre_seq, dgln, dglnx, dsum, dh, dc
+
+
+def lstm_layer_bwd_v1_plain(gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln,
+                            dhn, dcn, norm: bool = True):
+    """The V1 backward kernel's function, written out in plain PyTorch: the
+    reverse loop over the precomputed x-side gate gx = LN_x(gxp) + bias and
+    gh_pre = h_{t-1} @ Wh, with c_{t-1} and c_t from the stash.
+
+    Returns (dgate (S, B, 4H), dg_pre (S, B, 4H), dh0 (B, H), dc0 (B, H)),
+    as lstm_cell.py:_bwd_impl."""
+    S, B, G = gx.shape
+    H = G // 4
+    dgate_seq, dg_pre_seq = torch.empty_like(gx), torch.empty_like(gx)
+    dh, dc = dhn, dcn
+    for t in range(S - 1, -1, -1):
+        ghp = gh_pre[t]
+        if norm:
+            mean, rstd = _ln_stats(ghp)
+            xhat = (ghp - mean) * rstd
+            gh = xhat * gln + bln
+        else:
+            gh = ghp
+        si, sf, so, su = _gates(gx[t] + gh, H)
+        cp = c_prev[t]
+        tc = torch.tanh(c_seq[t])
+        dh = dh + dy[t]
+        dc = dc + dh * so * (1.0 - tc * tc)
+        dgate = torch.cat([(dc * su) * si * (1.0 - si),
+                           (dc * cp) * sf * (1.0 - sf),
+                           (dh * tc) * so * (1.0 - so),
+                           (dc * si) * (1.0 - su * su)], dim=-1)
+        dg_pre = _ln_bwd(dgate, gln, xhat, rstd) if norm else dgate
+        dgate_seq[t] = dgate
+        dg_pre_seq[t] = dg_pre
+        dh = dg_pre @ wh.t()
+        dc = dc * sf
+    return dgate_seq, dg_pre_seq, dh, dc
+
+
+def lstm_layer_bwd_v1_streams(gxp, y, c_seq, wh, glnx, blnx, bias, h0, c0,
+                              norm: bool = True):
+    """The V1 kernel's precomputed streams, made as lstm_cell.py:_layer_bwd
+    makes them: the x-side gate gx = LN_x(gxp) + bias, gh_pre = h_{t-1} @ Wh
+    (one sequence-wide product) and c_{t-1}, from the forward's inputs and
+    stash.  Plain tensor code on either device."""
+    gx = _ln(gxp, glnx, blnx) + bias if norm else gxp + bias
+    h_prev = torch.cat([h0[None], y[:-1]])
+    c_prev = torch.cat([c0[None], c_seq[:-1]])
+    return gx, torch.matmul(h_prev, wh), c_prev
+
+
+def lstm_layer_bwd_v2(gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0,
+                      c0, dhn, dcn, norm: bool = True):
+    """The V2 backward (see lstm_layer_bwd_v2_plain for the function and
+    its outputs).  CPU tensors run the plain version; CUDA tensors launch
+    the kernel (float32, contiguous, H % 4 == 0) or raise.  The kernel's
+    per-CTA parameter sums are reduced with torch.sum in a fixed order."""
+    names = ("gxp", "y", "c_seq", "dy", "wh", "glnx", "blnx", "gln", "bln",
+             "bias", "h0", "c0", "dhn", "dcn")
+    args = (gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn,
+            dcn)
+    if _build.on_cpu(*args):
+        return lstm_layer_bwd_v2_plain(*args, norm=norm)
+    name = "lstm_layer_bwd_v2"
+    _build.check_kernel_inputs(name, dict(zip(names, args)),
+                               aligned=("gxp", "wh"))
+    S, B, H = _layer_dims(name, gxp, wh)
+    G = 4 * H
+    _expect_shapes(name, {
+        **{n: (t, (S, B, H)) for n, t in zip(names[1:4], args[1:4])},
+        **{n: (t, (G,)) for n, t in zip(names[5:10], args[5:10])},
+        **{n: (t, (B, H)) for n, t in zip(names[10:], args[10:])}})
+    if H % 4:
+        raise ValueError(f"{name}: H must be a multiple of 4; got {H}")
+    lib = _build.library().cdll
+    _check_smem(name, lib.lstm_layer_bwd_v2_smem_bytes(H), H, gxp.device)
+
+    rows = lib.lstm_layer_rows_per_cta()
+    dgxp, dg_pre = torch.empty_like(gxp), torch.empty_like(gxp)
+    part = gxp.new_empty(((B + rows - 1) // rows, 3, G))
+    dh0, dc0 = torch.empty_like(h0), torch.empty_like(h0)
+    _launch(name, lib.lstm_layer_bwd_v2_f32, gxp.device, gxp, y, c_seq, dy,
+            wh, wh.t().contiguous(), glnx, blnx, gln, bln, bias, h0, c0, dhn,
+            dcn, dgxp, dg_pre, part, dh0, dc0, S, B, H, int(bool(norm)))
+    lstm_layer_bwd_v2.launches += 1
+    dgln, dglnx, dsum = part.sum(dim=0)
+    return dgxp, dg_pre, dgln, dglnx, dsum, dh0, dc0
+
+
+lstm_layer_bwd_v2.launches = 0
+
+
+def lstm_layer_bwd_v1(gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn,
+                      norm: bool = True):
+    """The V1 backward (see lstm_layer_bwd_v1_plain for the function and
+    its outputs).  CPU tensors run the plain version; CUDA tensors launch
+    the kernel (float32, contiguous, H % 4 == 0) or raise."""
+    names = ("gx", "gh_pre", "c_prev", "c_seq", "dy", "wh", "gln", "bln",
+             "dhn", "dcn")
+    args = (gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn)
+    if _build.on_cpu(*args):
+        return lstm_layer_bwd_v1_plain(*args, norm=norm)
+    name = "lstm_layer_bwd_v1"
+    _build.check_kernel_inputs(name, dict(zip(names, args)),
+                               aligned=("gh_pre",))
+    S, B, H = _layer_dims(name, gx, wh)
+    G = 4 * H
+    _expect_shapes(name, {
+        "gh_pre": (gh_pre, (S, B, G)),
+        **{n: (t, (S, B, H)) for n, t in zip(names[2:5], args[2:5])},
+        "gln": (gln, (G,)), "bln": (bln, (G,)),
+        "dhn": (dhn, (B, H)), "dcn": (dcn, (B, H))})
+    if H % 4:
+        raise ValueError(f"{name}: H must be a multiple of 4; got {H}")
+    lib = _build.library().cdll
+    _check_smem(name, lib.lstm_layer_bwd_v1_smem_bytes(H), H, gx.device)
+
+    dgate, dg_pre = torch.empty_like(gx), torch.empty_like(gx)
+    dh0, dc0 = torch.empty_like(dhn), torch.empty_like(dhn)
+    _launch(name, lib.lstm_layer_bwd_v1_f32, gx.device, gx, gh_pre, c_prev,
+            c_seq, dy, wh.t().contiguous(), gln, bln, dhn, dcn, dgate, dg_pre,
+            dh0, dc0, S, B, H, int(bool(norm)))
+    lstm_layer_bwd_v1.launches += 1
+    return dgate, dg_pre, dh0, dc0
+
+
+lstm_layer_bwd_v1.launches = 0
+
+
+def _layer_backward(saved, dy, dhn, dcn, norm):
+    """lstm_cell.py:_layer_bwd: the 9 gradients (dgxp, dwh, dglnx, dblnx,
+    dgln, dbln, dbias, dh0, dc0) from the forward's inputs and stash."""
+    gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, y, c_seq = saved
+    B, H = h0.shape
+    G = 4 * H
+    if B >= V2_MIN_BATCH:
+        # The kernel's dgamma sums are zero without the LayerNorms.
+        dgxp, dg_pre, dgln, dglnx, dsum, dh0, dc0 = lstm_layer_bwd_v2(
+            gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn,
+            dcn, norm)
+        # dWh from the unshifted stash: h_{t-1} is h0 at t = 0, y[t-1] after.
+        dwh = h0.t() @ dg_pre[0] + (y[:-1].reshape(-1, H).t()
+                                    @ dg_pre[1:].reshape(-1, G))
+    else:
+        # V1: the x-side gate and gh_pre as sequence-wide tensor code first,
+        # the LN_x backward and the parameter sums after.
+        gx, gh_pre, c_prev = lstm_layer_bwd_v1_streams(
+            gxp, y, c_seq, wh, glnx, blnx, bias, h0, c0, norm)
+        dgate, dg_pre, dh0, dc0 = lstm_layer_bwd_v1(
+            gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn, norm)
+        h_prev = torch.cat([h0[None], y[:-1]])
+        dwh = h_prev.reshape(-1, H).t() @ dg_pre.reshape(-1, G)
+        dsum = dgate.sum(dim=(0, 1))
+        dgxp = dgate                    # without LN_x, gx = gxp + bias
+        if norm:
+            mean, rstd = _ln_stats(gh_pre)
+            dgln = (dgate * ((gh_pre - mean) * rstd)).sum(dim=(0, 1))
+            meanx, rstdx = _ln_stats(gxp)
+            xhatx = (gxp - meanx) * rstdx
+            dgxp = _ln_bwd(dgate, glnx, xhatx, rstdx)
+            dglnx = (dgate * xhatx).sum(dim=(0, 1))
+        else:
+            dgln, dglnx = torch.zeros_like(bias), torch.zeros_like(bias)
+    # The sum of dgate is dbeta_x, dbeta_h and dbias alike.
+    dbeta = ((dsum.clone(), dsum.clone()) if norm else
+             (torch.zeros_like(bias), torch.zeros_like(bias)))
+    return dgxp, dwh, dglnx, dbeta[0], dgln, dbeta[1], dsum, dh0, dc0
+
+
+class _LayerFunction(torch.autograd.Function):
+    """lstm_layer_fused with its hand-derived backward: the counterpart of
+    the custom VJP at lstm_cell.py:246-709.  The forward stashes the cell
+    states; the backward returns the 9 gradients in argument order."""
+
+    @staticmethod
+    def forward(ctx, gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, norm):
+        y, c_seq, hn, cn = lstm_layer_stash(gxp, wh, glnx, blnx, gln, bln,
+                                            bias, h0, c0, norm)
+        ctx.norm = norm
+        ctx.save_for_backward(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, y,
+                              c_seq)
+        return y, hn, cn
+
+    @staticmethod
+    def backward(ctx, dy, dhn, dcn):
+        grads = _layer_backward(ctx.saved_tensors, dy.contiguous(),
+                                dhn.contiguous(), dcn.contiguous(), ctx.norm)
+        return (*grads, None)

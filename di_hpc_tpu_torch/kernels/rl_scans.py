@@ -11,9 +11,13 @@ Counterparts of the V-trace part of di_hpc_tpu/pallas_kernels/rl_scans.py:
     writing the vs and advantage planes (the weighted path of
     ops.vtrace_error).
 
-The kernels are forward-only.  The plain versions keep ordinary autograd
-with the V-trace stop-gradient contract: returns and advantages come from
-detached inputs, so gradients reach only logp and value[:-1].
+Both wrappers are torch.autograd.Functions on either device, with the
+JAX package's gradients.  `vtrace_losses` follows the V-trace stop-gradient
+contract (rl_scans.py:644-663): its backward recomputes vs and the
+advantage with `vtrace_returns_adv` and gives d pg/d lp = -ct*adv/TB,
+d vl/d value[:-1] = 2*ct*(value - vs)/TB, and zeros to the importance
+weights, the rewards and value[T].  `vtrace_returns_adv` has the zero
+gradient of rl_scans.py:507-511.
 """
 
 from __future__ import annotations
@@ -72,7 +76,6 @@ def _check(name, tensors: dict, T, B):
                              f"{tuple(t.shape)}")
     if T < 1 or B < 1:
         raise ValueError(f"{name}: T and B must be >= 1; got T={T}, B={B}")
-    _build.forward_only(name, *tensors.values())
 
 
 def _scalars(gamma, lambda_, rho_clip, c_clip, pg_clip):
@@ -86,10 +89,17 @@ def vtrace_losses(is_weights, lp, reward, value, gamma: float = 0.99,
     """Unit-weight V-trace losses (pg_loss, value_loss), recurrence, clips,
     advantage and both sums in one kernel pass.  IS, lp, reward (T, B) and
     value (T+1, B).  CPU tensors run the plain version; CUDA tensors launch
-    the kernel or raise."""
+    the kernel or raise.  Differentiable in lp and value[:-1]."""
+    return _VtraceLossesFunction.apply(is_weights, lp, reward, value, gamma,
+                                       lambda_, rho_clip, c_clip, pg_clip)
+
+
+vtrace_losses.launches = 0
+
+
+def _vtrace_losses_forward(is_weights, lp, reward, value, *clips):
     if _build.on_cpu(is_weights, lp, reward, value):
-        return vtrace_losses_plain(is_weights, lp, reward, value, gamma,
-                                   lambda_, rho_clip, c_clip, pg_clip)
+        return vtrace_losses_plain(is_weights, lp, reward, value, *clips)
     name = "vtrace_losses"
     T, B = reward.shape if reward.ndim == 2 else (0, 0)
     _check(name, {"is_weights": is_weights, "lp": lp, "reward": reward,
@@ -99,8 +109,8 @@ def vtrace_losses(is_weights, lp, reward, value, gamma: float = 0.99,
         stream = torch.cuda.current_stream().cuda_stream
         status = _build.library().cdll.vtrace_losses_f32(
             is_weights.data_ptr(), lp.data_ptr(), reward.data_ptr(),
-            value.data_ptr(), parts.data_ptr(), T, B,
-            *_scalars(gamma, lambda_, rho_clip, c_clip, pg_clip), stream)
+            value.data_ptr(), parts.data_ptr(), T, B, *_scalars(*clips),
+            stream)
     _build.check_status(name, status)
     vtrace_losses.launches += 1
     # torch.sum on the card reduces in a fixed order: no float atomics, so
@@ -109,7 +119,26 @@ def vtrace_losses(is_weights, lp, reward, value, gamma: float = 0.99,
     return -sums[0] / (T * B), sums[1] / (T * B)
 
 
-vtrace_losses.launches = 0
+class _VtraceLossesFunction(torch.autograd.Function):
+    """vtrace_losses with the recompute backward of rl_scans.py:651-660."""
+
+    @staticmethod
+    def forward(ctx, is_weights, lp, reward, value, *clips):
+        ctx.clips = clips
+        ctx.save_for_backward(is_weights, reward, value)
+        return _vtrace_losses_forward(is_weights, lp, reward, value, *clips)
+
+    @staticmethod
+    def backward(ctx, ct_pg, ct_vl):
+        is_weights, reward, value = ctx.saved_tensors
+        T, B = reward.shape
+        ret, adv = vtrace_returns_adv(is_weights, reward, value, *ctx.clips)
+        dlp = (-ct_pg / (T * B)) * adv
+        dvalue = torch.zeros_like(value)
+        dvalue[:-1] = (ct_vl * 2.0 / (T * B)) * (value[:-1] - ret)
+        d_is, d_reward = (torch.zeros_like(t) if ctx.needs_input_grad[i]
+                          else None for t, i in ((is_weights, 0), (reward, 2)))
+        return (d_is, dlp, d_reward, dvalue, *(None,) * len(ctx.clips))
 
 
 def vtrace_returns_adv(is_weights, reward, value, gamma: float = 0.99,
@@ -117,10 +146,18 @@ def vtrace_returns_adv(is_weights, reward, value, gamma: float = 0.99,
                        c_clip: float = 1.0, pg_clip: float = 1.0):
     """V-trace (vs, advantages), each (T, B), the three min(IS, clip)
     planes derived in-kernel.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise.  Its gradient is zero."""
+    return _VtraceReturnsAdvFunction.apply(is_weights, reward, value, gamma,
+                                           lambda_, rho_clip, c_clip,
+                                           pg_clip)
+
+
+vtrace_returns_adv.launches = 0
+
+
+def _vtrace_returns_adv_forward(is_weights, reward, value, *clips):
     if _build.on_cpu(is_weights, reward, value):
-        return vtrace_returns_adv_plain(is_weights, reward, value, gamma,
-                                        lambda_, rho_clip, c_clip, pg_clip)
+        return vtrace_returns_adv_plain(is_weights, reward, value, *clips)
     name = "vtrace_returns_adv"
     T, B = reward.shape if reward.ndim == 2 else (0, 0)
     _check(name, {"is_weights": is_weights, "reward": reward,
@@ -131,11 +168,23 @@ def vtrace_returns_adv(is_weights, reward, value, gamma: float = 0.99,
         stream = torch.cuda.current_stream().cuda_stream
         status = _build.library().cdll.vtrace_returns_adv_f32(
             is_weights.data_ptr(), reward.data_ptr(), value.data_ptr(),
-            ret.data_ptr(), adv.data_ptr(), T, B,
-            *_scalars(gamma, lambda_, rho_clip, c_clip, pg_clip), stream)
+            ret.data_ptr(), adv.data_ptr(), T, B, *_scalars(*clips), stream)
     _build.check_status(name, status)
     vtrace_returns_adv.launches += 1
     return ret, adv
 
 
-vtrace_returns_adv.launches = 0
+class _VtraceReturnsAdvFunction(torch.autograd.Function):
+    """vtrace_returns_adv with the zero gradient of rl_scans.py:507-511."""
+
+    @staticmethod
+    def forward(ctx, is_weights, reward, value, *clips):
+        ctx.n_clips = len(clips)
+        ctx.save_for_backward(is_weights, reward, value)
+        return _vtrace_returns_adv_forward(is_weights, reward, value, *clips)
+
+    @staticmethod
+    def backward(ctx, d_ret, d_adv):
+        grads = tuple(torch.zeros_like(t) if needed else None for t, needed
+                      in zip(ctx.saved_tensors, ctx.needs_input_grad))
+        return (*grads, *(None,) * ctx.n_clips)

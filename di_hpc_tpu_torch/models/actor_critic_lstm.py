@@ -1,11 +1,13 @@
-"""Flagship model: LN-LSTM actor-critic, the counterpart of the JAX
-package's models/actor_critic_lstm.py -- its forward and serving paths.
+"""Flagship model: LN-LSTM actor-critic with a V-trace training step, the
+counterpart of the JAX package's models/actor_critic_lstm.py.
 
 `actor_critic_forward` runs the embedding GEMM and relu, the fused LN-LSTM
 (whole-layer kernel per layer), and the policy and value heads.
 `actor_step` is the serving step: one timestep of that forward and a
-categorical sample.  The training step (`make_train_step`, with its
-backward kernels and Adam) is the next slice of the port (ROADMAP.md).
+categorical sample.  `make_train_step` builds the learner's step: that
+forward, `ops.vtrace_error`, the backward (the LSTM's hand-derived
+backward kernels, the V-trace loss kernel's recompute backward) and the
+optimizer's update.
 """
 
 from __future__ import annotations
@@ -16,11 +18,13 @@ import torch
 from torch import nn
 
 from ..network.lstm import LSTMWeights, lstm_fused
+from ..ops.vtrace import vtrace_data, vtrace_error
 from ..origin.rnn import LSTMParams, init_lstm_params
 
 __all__ = [
     "ActorCriticConfig", "ActorCriticParams", "TrainBatch",
     "init_actor_critic", "actor_critic_forward", "actor_step",
+    "make_train_step",
 ]
 
 
@@ -85,8 +89,9 @@ def actor_critic_forward(
     norm_type: Optional[str] = "LN",
 ):
     """Returns (logits (S, B, A), value (S, B), next_state (h, c), each
-    (L, B, H)).  Runs where `params` and `obs` lie; on the card the LSTM
-    kernels are forward-only, so call it under torch.no_grad()."""
+    (L, B, H)).  Runs where `params` and `obs` lie; differentiable in the
+    parameters on either device.  Under torch.no_grad() the LSTM layers
+    skip the cell-state stash the backward reads."""
     x = torch.relu(torch.matmul(obs, params.embed_w) + params.embed_b)
     y, next_state = lstm_fused(params.lstm.params(), x, state, norm_type)
     logits = torch.matmul(y, params.policy_w) + params.policy_b
@@ -118,3 +123,62 @@ def actor_step(
         probs = torch.softmax(logits[0], dim=-1)
         action = torch.multinomial(probs, 1, generator=generator)[:, 0]
     return action, logits[0], value[0], new_state
+
+
+def make_train_step(
+    cfg: ActorCriticConfig,
+    optimizer: torch.optim.Optimizer,
+    gamma: float = 0.99,
+    lambda_: float = 0.95,
+    value_coef: float = 0.5,
+    entropy_coef: float = 0.01,
+    compute_dtype=None,
+):
+    """Builds the V-trace training step `train_step(params, batch) ->
+    metrics`, the counterpart of the JAX package's make_train_step.
+
+    `optimizer` holds `params.parameters()`; `torch.optim.Adam(...,
+    lr=1e-3)` with its defaults (betas 0.9, 0.999, eps 1e-8, bias
+    correction) computes what `optax.adam(1e-3)` computes.  The loss is the
+    JAX package's: the forward over `batch.obs` (T+1 steps), then
+    `vtrace_error` on the first T logits, and total = policy_loss +
+    value_coef * value_loss - entropy_coef * entropy.
+
+    The step updates `params` and the optimizer's state in place, which
+    stands in for the JAX step's donated buffers: no second copy of the
+    parameters is made.  It returns the JAX step's metrics, as 0-d float32
+    tensors on the params' device: total_loss, policy_loss, value_loss,
+    entropy.
+
+    `compute_dtype` may only be None (or float32): the mixed-precision step
+    needs bf16 streams in the three LSTM kernels, the next slice in
+    ROADMAP.md, and raises NotImplementedError until then."""
+    if compute_dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            f"make_train_step: compute_dtype={compute_dtype} needs bf16 "
+            f"streams in the LSTM forward and backward kernels; that is the "
+            f"bf16 slice in ROADMAP.md.  Use compute_dtype=None (float32).")
+
+    def loss_fn(params: ActorCriticParams, batch: TrainBatch):
+        logits, value, _ = actor_critic_forward(params, batch.obs, None,
+                                                cfg.norm_type)
+        T = batch.actions.shape[0]
+        losses = vtrace_error(
+            vtrace_data(logits[:T], batch.behaviour_logits.float(),
+                        batch.actions, value, batch.rewards.float(), None),
+            gamma, lambda_)
+        total = (losses.policy_loss + value_coef * losses.value_loss
+                 - entropy_coef * losses.entropy_loss)
+        return total, losses
+
+    def train_step(params: ActorCriticParams, batch: TrainBatch) -> dict:
+        optimizer.zero_grad(set_to_none=True)
+        total, losses = loss_fn(params, batch)
+        total.backward()
+        optimizer.step()
+        return {"total_loss": total.detach(),
+                "policy_loss": losses.policy_loss.detach(),
+                "value_loss": losses.value_loss.detach(),
+                "entropy": losses.entropy_loss.detach()}
+
+    return train_step

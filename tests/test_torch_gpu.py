@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
-version on the same inputs, and the forward/serving path on the card
-against the same calls on the CPU.
+version on the same inputs, the LSTM layer's autograd.Function against
+autograd through the plain forward, and the forward/serving path and one
+training step on the card against the same calls on the CPU.
 
 Every test here is marked `gpu` and skips without a card (decided in the
 `cuda` fixture, never at import).  This file imports no JAX, so it also
@@ -68,6 +69,20 @@ def test_lstm_layer_kernel_matches_plain(cuda, S, B, H, norm):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=name)
 
 
+def test_lstm_layer_stash_kernel_matches_plain(cuda):
+    """The forward kernel in stash mode also writes the cell state of every
+    step; y, h_n and c_n are those of the run without the stash."""
+    args = _layer_inputs(19, 9, 13, 128, cuda)
+    with torch.no_grad():
+        got = kernels.lstm_layer_stash(*args)
+        plain = kernels.lstm_layer_fused(*args)
+        want = kernels.lstm_layer_stash_plain(*args)
+    for name, g, w in zip(("y", "c_seq", "h_n", "c_n"), got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=name)
+    for g, p in zip((got[0], got[2], got[3]), plain):
+        assert torch.equal(g, p)
+
+
 @pytest.mark.parametrize("T,B", [(36, 136), (37, 9)])
 def test_vtrace_kernels_match_plain(cuda, T, B):
     is_w, lp, reward, value = _vtrace_inputs(9, T, B, cuda)
@@ -91,8 +106,6 @@ def test_cuda_wrappers_raise_on_what_they_cannot_take(cuda):
         kernels.lstm_layer_fused(args[0].transpose(0, 1), *args[1:])
     with pytest.raises(ValueError, match="all inputs must lie"):
         kernels.lstm_layer_fused(args[0], args[1].cpu(), *args[2:])
-    with pytest.raises(NotImplementedError, match="training slice"):
-        kernels.lstm_layer_fused(args[0].clone().requires_grad_(), *args[1:])
     H = 4096
     big = [torch.zeros(s, device=cuda) for s in
            [(1, 1, 4 * H), (H, 4 * H)] + [(4 * H,)] * 5 + [(1, H)] * 2]
@@ -140,8 +153,167 @@ def test_forward_and_serving_on_card_match_cpu(cuda):
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         want = run(cpu, torch.device("cpu"))
-    assert counts == {"lstm_layer_fused": 4, "vtrace_losses": 1,
+    assert counts == {"lstm_layer_fused": 4, "lstm_layer_bwd_v2": 0,
+                      "lstm_layer_bwd_v1": 0, "vtrace_losses": 1,
                       "vtrace_returns_adv": 1}
     for i, (g, w) in enumerate(zip(got, want)):
         torch.testing.assert_close(g.cpu(), w, rtol=RTOL, atol=ATOL,
                                    msg=f"output {i}")
+
+
+def _bwd_inputs(seed, S, B, H, dev, wh_scale=0.1):
+    """A stashed forward (plain, on the card) and random cotangents: the
+    V2 kernel's arguments, then the V1 kernel's arguments made from them."""
+    rng = np.random.default_rng(seed)
+    fwd = _layer_inputs(seed, S, B, H, dev)
+    fwd[1] = fwd[1] * (wh_scale / 0.1)
+    with torch.no_grad():
+        y, c_seq, _, _ = kernels.lstm_layer_stash_plain(*fwd)
+    dy, dhn, dcn = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                    .to(dev) for s in ((S, B, H), (B, H), (B, H)))
+    gxp, wh, glnx, blnx, gln, bln, bias, h0, c0 = fwd
+    return (gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn,
+            dcn)
+
+
+def _v1_args(v2_args, norm):
+    """The V1 kernel's arguments, made from the V2 kernel's as the layer's
+    backward makes them."""
+    gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn, dcn = \
+        v2_args
+    gx, gh_pre, c_prev = kernels.lstm_layer_bwd_v1_streams(
+        gxp, y, c_seq, wh, glnx, blnx, bias, h0, c0, norm)
+    return gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn
+
+
+# B = 13 and 17 leave a ragged last block of the 8-row CTAs; H = 96 is no
+# power of two; norm=False drops both LNs; the last case is the train
+# step's width (S = T+1 = 33, B = 256 for V2, 32 for V1).
+@pytest.mark.parametrize("S,B,H,norm", [(9, 13, 128, True), (5, 17, 96, False),
+                                        (33, 0, 512, True)])
+@pytest.mark.parametrize("variant", ["v2", "v1"])
+def test_lstm_bwd_kernels_match_plain(cuda, variant, S, B, H, norm):
+    if B == 0:
+        B, wh_scale = (256 if variant == "v2" else 32), 1 / np.sqrt(H)
+    else:
+        wh_scale = 0.1
+    args = _bwd_inputs(13, S, B, H, cuda, wh_scale)
+    if variant == "v1":
+        args = _v1_args(args, norm)
+    wrapper = getattr(kernels, f"lstm_layer_bwd_{variant}")
+    plain = getattr(kernels, f"lstm_layer_bwd_{variant}_plain")
+    with torch.no_grad():
+        before = wrapper.launches
+        got = wrapper(*args, norm=norm)
+        torch.cuda.synchronize()
+        want = plain(*args, norm=norm)
+    assert wrapper.launches == before + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        # The reverse loop carries every step's rounding into all earlier
+        # steps (through dg_pre @ Wh^T and the LayerNorm backward's 1/std),
+        # and V2's parameter sums add all S*B rows in another order than the
+        # plain loop: an entry's error follows its output's scale, so atol
+        # grows by 1e-5 times the output's largest |entry|.
+        atol = ATOL + 1e-5 * float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=atol,
+                                   msg=f"{variant} output {i}")
+
+
+def test_lstm_bwd_v2_is_bitwise_repeatable(cuda):
+    """Per-CTA partial sums reduced by torch.sum, no float atomics."""
+    args = _bwd_inputs(14, 9, 88, 128, cuda)
+    with torch.no_grad():
+        first = kernels.lstm_layer_bwd_v2(*args)
+        second = kernels.lstm_layer_bwd_v2(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _layer_loss(y, hn, cn):
+    return (y * torch.cos(y)).sum() + (hn ** 2).sum() + torch.sin(cn).sum()
+
+
+# B = 13 routes the backward through V1, B = 72 through V2 (ragged).
+@pytest.mark.parametrize("B,norm", [(13, True), (72, True), (72, False)])
+def test_layer_function_matches_autograd_through_plain(cuda, B, norm):
+    """The autograd.Function's 9 gradients (stash forward, hand-derived
+    backward kernels) against PyTorch's autograd through the plain forward,
+    both on the card."""
+    args = [a.requires_grad_() for a in _layer_inputs(15, 9, B, 128, cuda)]
+    kernels.reset_launch_counts()
+    got = torch.autograd.grad(
+        _layer_loss(*kernels.lstm_layer_fused(*args, norm=norm)), args)
+    counts = kernels.launch_counts()
+    want = torch.autograd.grad(
+        _layer_loss(*kernels.lstm_layer_plain(*args, norm=norm)), args,
+        allow_unused=True)
+    variant = "lstm_layer_bwd_v2" if B >= kernels.V2_MIN_BATCH \
+        else "lstm_layer_bwd_v1"
+    assert counts["lstm_layer_fused"] == 1 and counts[variant] == 1
+    names = ("dgxp", "dwh", "dglnx", "dblnx", "dgln", "dbln", "dbias", "dh0",
+             "dc0")
+    for name, g, w in zip(names, got, want):
+        w = torch.zeros_like(g) if w is None else w
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=name)
+
+
+def test_cuda_inputs_that_require_grad_get_gradients(cuda):
+    args = [a.requires_grad_() for a in _layer_inputs(16, 3, 8, 32, cuda)]
+    _layer_loss(*kernels.lstm_layer_fused(*args)).backward()
+    assert all(a.grad is not None and torch.isfinite(a.grad).all()
+               for a in args)
+    is_w, lp, reward, value = _vtrace_inputs(17, 6, 8, cuda)
+    lp.requires_grad_()
+    value.requires_grad_()
+    pg, vl = kernels.vtrace_losses(is_w, lp, reward, value, *CLIPS)
+    (pg + vl).backward()
+    assert torch.isfinite(lp.grad).all() and torch.isfinite(value.grad).all()
+    assert float(value.grad[-1].abs().max()) == 0.0
+
+
+# B = 5 routes the LSTM backward through V1, B = 64 through V2.
+@pytest.mark.parametrize("B", [5, 64])
+def test_train_step_on_card_matches_cpu(cuda, B):
+    """One make_train_step step with Adam on the card (kernels) against the
+    same step on the CPU (plain versions): metrics, every gradient, and the
+    updated parameters where the gradient is above 10x the tolerance (Adam's
+    first step moves an entry by lr * g / (|g| + eps), so an entry whose
+    gradient is at the noise floor may move either way)."""
+    cfg = models.ActorCriticConfig(obs_dim=24, hidden_size=128, num_layers=2,
+                                   action_dim=16)
+    arrays = models.to_numpy_params(models.init_actor_critic(
+        cfg, torch.Generator().manual_seed(1), device="cpu"))
+    rng = np.random.default_rng(18)
+    T = 8
+    batch = models.TrainBatch(
+        torch.from_numpy(rng.standard_normal((T + 1, B, 24))
+                         .astype(np.float32)),
+        torch.from_numpy(rng.integers(0, 16, (T, B))),
+        torch.from_numpy(rng.standard_normal((T, B)).astype(np.float32)),
+        torch.from_numpy(rng.standard_normal((T, B, 16)).astype(np.float32)))
+
+    def run(dev):
+        params = models.from_jax_params(arrays, device=dev)
+        opt = torch.optim.Adam(params.parameters(), lr=1e-3)
+        step = models.make_train_step(cfg, opt)
+        metrics = step(params, models.TrainBatch(*(x.to(dev) for x in batch)))
+        return metrics, params
+
+    kernels.reset_launch_counts()
+    got_m, got_p = run(cuda)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want_m, want_p = run(torch.device("cpu"))
+    variant = "lstm_layer_bwd_v2" if B >= kernels.V2_MIN_BATCH \
+        else "lstm_layer_bwd_v1"
+    assert counts["lstm_layer_fused"] == 2 and counts[variant] == 2
+    assert counts["vtrace_losses"] == 1 and counts["vtrace_returns_adv"] == 1
+    for k in want_m:
+        torch.testing.assert_close(got_m[k].cpu(), want_m[k], rtol=RTOL,
+                                   atol=ATOL, msg=k)
+    for (name, g), (_, w) in zip(got_p.named_parameters(),
+                                 want_p.named_parameters()):
+        torch.testing.assert_close(g.grad.cpu(), w.grad, rtol=RTOL, atol=ATOL,
+                                   msg=f"grad {name}")
+        big = w.grad.abs() > 10 * ATOL
+        torch.testing.assert_close(g.detach().cpu()[big], w.detach()[big],
+                                   rtol=0, atol=1e-6, msg=f"param {name}")

@@ -39,7 +39,8 @@ def test_package_imports_without_jax_or_the_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["leaked"] == []
     for sub in ("kernels.lstm_cell", "kernels.rl_scans", "kernels._build",
-                "models.convert", "network.lstm", "ops.vtrace"):
+                "models.actor_critic_lstm", "models.convert", "network.lstm",
+                "ops.categorical", "ops.vtrace"):
         assert "di_hpc_tpu_torch." + sub in result["imported"]
 
 

@@ -20,7 +20,6 @@ from di_hpc_tpu.pallas_kernels import lstm_cell as jax_lstm_cell
 from di_hpc_tpu.pallas_kernels import rl_scans as jax_rl_scans
 
 from di_hpc_tpu_torch import kernels
-from di_hpc_tpu_torch.kernels import _build
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -28,6 +27,7 @@ RTOL, ATOL = 1e-4, 1e-5
 @pytest.fixture
 def interpret():
     ls.INTERPRET = True
+    jax.clear_caches()          # no trace cached by an earlier test's mode
     yield
     ls.INTERPRET = False
 
@@ -151,17 +151,116 @@ def test_non_cpu_inputs_go_to_the_kernel_checks_not_the_plain_version():
         kernels.lstm_layer_fused(*args)
 
 
-def test_forward_only_guard():
-    x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        _build.forward_only("k", x)
-    with torch.no_grad():
-        _build.forward_only("k", x)
-    _build.forward_only("k", x.detach())
-
-
 def test_launch_counts_reset():
     kernels.vtrace_losses.launches = 3
+    kernels.lstm_layer_bwd_v2.launches = 2
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
-        "lstm_layer_fused": 0, "vtrace_losses": 0, "vtrace_returns_adv": 0}
+        "lstm_layer_fused": 0, "lstm_layer_bwd_v2": 0, "lstm_layer_bwd_v1": 0,
+        "vtrace_losses": 0, "vtrace_returns_adv": 0}
+
+
+def _bwd_np(seed, S, B, H):
+    """Forward inputs, the plain stash forward's y and c_seq, and random
+    cotangents, as numpy: the arguments of _bwd_impl_v2 in its order."""
+    fwd = _layer_inputs(seed, S, B, H)
+    gxp, wh, glnx, blnx, gln, bln, bias, h0, c0 = fwd
+    with torch.no_grad():
+        y, c_seq, _, _ = kernels.lstm_layer_stash_plain(
+            *map(torch.from_numpy, fwd))
+    rng = np.random.default_rng(seed + 100)
+    dy, dhn, dcn = (rng.standard_normal(s).astype(np.float32)
+                    for s in ((S, B, H), (B, H), (B, H)))
+    return (gxp, y.numpy(), c_seq.numpy(), dy, wh, glnx, blnx, gln, bln,
+            bias, h0, c0, dhn, dcn)
+
+
+def _v1_np(v2_args, norm):
+    """The V1 kernel's streams, made from the V2 arguments as
+    lstm_cell.py:_layer_bwd makes them (in float32 numpy)."""
+    gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn, dcn = \
+        v2_args
+    if norm:
+        m = gxp.mean(-1, keepdims=True)
+        rstd = 1 / np.sqrt(np.maximum((gxp * gxp).mean(-1, keepdims=True)
+                                      - m * m, 0) + 1e-5)
+        gx = (gxp - m) * rstd * glnx + blnx + bias
+    else:
+        gx = gxp + bias
+    h_prev = np.concatenate([h0[None], y[:-1]])
+    c_prev = np.concatenate([c0[None], c_seq[:-1]])
+    return tuple(a.astype(np.float32) for a in (
+        gx, h_prev @ wh, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn))
+
+
+def _sum_atol(S, B):
+    """Tolerance of the sums over all S*B rows (parameter gradients): they
+    add S*B terms in another order than the JAX side, and float32 rounding
+    of such a sum grows like sqrt(S*B)."""
+    return ATOL * np.sqrt(S * B)
+
+
+# B = 64: one JAX block; B = 88 with the JAX block forced to 16: a ragged
+# last block on the TPU side (and 88 % 8 = 0, B = 13 below, on the CUDA
+# side); norm=False drops both LayerNorms.
+@pytest.mark.parametrize("S,B,norm,force_blk", [(8, 64, True, None),
+                                                (3, 88, True, 16),
+                                                (8, 64, False, None)])
+def test_lstm_bwd_v2_plain_matches_pallas(interpret, f32_matmuls, monkeypatch,
+                                          S, B, norm, force_blk):
+    if force_blk is not None:
+        monkeypatch.setattr(jax_lstm_cell, "_pick_blk_b_v2",
+                            lambda *a, **k: force_blk)
+    jax.clear_caches()
+    args = _bwd_np(8, S, B, 128)
+    want = jax_lstm_cell._bwd_impl_v2(*map(jnp.asarray, args), norm)
+    got = kernels.lstm_layer_bwd_v2(*map(torch.from_numpy, args), norm=norm)
+    names = ("dgxp", "dg_pre", "dgamma_h", "dgamma_x", "dsum", "dh0", "dc0")
+    for i, (name, g, w) in enumerate(zip(names, got, want)):
+        atol = _sum_atol(S, B) if 2 <= i <= 4 else ATOL
+        np.testing.assert_allclose(g.numpy(), np.asarray(w).reshape(g.shape),
+                                   rtol=RTOL, atol=atol, err_msg=name)
+
+
+# B = 13 leaves a ragged last block of the CUDA kernel's 8-row CTAs.
+@pytest.mark.parametrize("S,B,norm", [(8, 13, True), (9, 5, False)])
+def test_lstm_bwd_v1_plain_matches_pallas(interpret, f32_matmuls, S, B,
+                                          norm):
+    jax.clear_caches()
+    args = _v1_np(_bwd_np(9, S, B, 128), norm)
+    want = jax_lstm_cell._bwd_impl(*map(jnp.asarray, args), norm)
+    got = kernels.lstm_layer_bwd_v1(*map(torch.from_numpy, args), norm=norm)
+    for name, g, w in zip(("dgate", "dg_pre", "dh0", "dc0"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+
+
+def _layer_loss(y, hn, cn, xp):
+    return (y * xp.cos(y)).sum() + (hn ** 2).sum() + xp.sin(cn).sum()
+
+
+# B = 64 routes both sides' backward through V2, B = 5 through V1.
+@pytest.mark.parametrize("S,B,norm", [(8, 64, True), (8, 5, True),
+                                      (8, 64, False)])
+def test_layer_function_gradients_match_jax(interpret, f32_matmuls, S, B,
+                                            norm):
+    """The autograd.Function around lstm_layer_fused against jax.grad of
+    the JAX package's custom VJP (as tests/test_pallas_fused.py drives it):
+    the same 9 gradients in the same order, from the hand-derived backward
+    on both sides."""
+    jax.clear_caches()
+    args = _layer_inputs(10, S, B, 128)
+    want = jax.grad(lambda a: _layer_loss(
+        *jax_lstm_cell.lstm_layer_fused(*a, norm), jnp))(
+        tuple(map(jnp.asarray, args)))
+    t = [torch.from_numpy(a).requires_grad_() for a in args]
+    kernels.reset_launch_counts()
+    got = torch.autograd.grad(
+        _layer_loss(*kernels.lstm_layer_fused(*t, norm=norm), torch), t)
+    assert set(kernels.launch_counts().values()) == {0}   # CPU: plain only
+    names = ("dgxp", "dwh", "dglnx", "dblnx", "dgln", "dbln", "dbias", "dh0",
+             "dc0")
+    for i, (name, g, w) in enumerate(zip(names, got, want)):
+        atol = _sum_atol(S, B) if 1 <= i <= 6 else ATOL
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=atol, err_msg=name)

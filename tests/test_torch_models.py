@@ -1,6 +1,6 @@
 """The whole slice on the CPU: the port's LN-LSTM actor-critic forward,
-serving step and V-trace loss against the JAX package's, with weights
-carried over by models.from_jax_params.
+serving step, V-trace loss and training step against the JAX package's,
+with weights carried over by models.from_jax_params.
 
 The JAX side runs its Pallas kernels in interpret mode under float32
 matmuls (the unroll is S = T+1 = 9 >= 8 at H = 128, so the forward reaches
@@ -12,6 +12,7 @@ float32 on both sides, differing only in the order of sums.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -184,3 +185,74 @@ def test_init_actor_critic_is_seeded_and_shaped():
                               torch.zeros(2, 2), torch.zeros(2, 2, A))
     logits, value, _ = models.actor_critic_forward(a, batch.obs)
     assert logits.shape == (3, 2, A) and value.shape == (3, 2)
+
+
+def _recording(inner, grads):
+    """An optax transformation that records the gradients it is given."""
+    def update(g, state, params=None):
+        grads.append(g)
+        return inner.update(g, state, params)
+    return optax.GradientTransformation(inner.init, update)
+
+
+# B = 3 routes the LSTM backward through V1 on both sides, B = 64 through V2.
+@pytest.mark.parametrize("B", [3, 64])
+def test_train_step_matches_jax(interpret, f32_matmuls, B):
+    """One make_train_step step with Adam(lr=1e-3) against the JAX step with
+    optax.adam(1e-3), from the same weights and batch: the metrics and every
+    gradient at rtol=1e-4, atol=1e-5, and the updated parameters.  Adam's
+    first step moves an entry by lr * g / (|g| + eps), so an entry whose
+    gradient lies at the noise floor may move either way: the updated
+    parameters are held to 1e-6 where |g| > 1e-4 (ten times the gradient
+    atol) and to 2 * lr elsewhere."""
+    T = 8
+    rng = np.random.default_rng(20)
+    A, O = CFG["action_dim"], CFG["obs_dim"]
+    batch_np = (rng.standard_normal((T + 1, B, O)).astype(np.float32),
+                rng.integers(0, A, (T, B)),
+                rng.standard_normal((T, B)).astype(np.float32),
+                rng.standard_normal((T, B, A)).astype(np.float32))
+    p = _np_params(21)
+    cfg_j = jax_ac.ActorCriticConfig(**CFG)
+    grads = []
+    opt = _recording(optax.adam(1e-3), grads)
+    jparams = _jnp(p)
+    jnew, _, jm = jax_ac.make_train_step(cfg_j, opt)(
+        jparams, opt.init(jparams),
+        jax_ac.TrainBatch(*map(jnp.asarray, batch_np)))
+
+    mod = models.from_jax_params(p, device="cpu")
+    step = models.make_train_step(models.ActorCriticConfig(**CFG),
+                                  torch.optim.Adam(mod.parameters(), lr=1e-3))
+    kernels.reset_launch_counts()
+    tm = step(mod, models.TrainBatch(*map(torch.from_numpy, batch_np)))
+    assert set(kernels.launch_counts().values()) == {0}   # CPU: plain only
+
+    for k in ("total_loss", "policy_loss", "value_loss", "entropy"):
+        _close(tm[k], jm[k], k)
+    for name, param in mod.named_parameters():
+        jg, jp_old, jp_new = (_jax_leaf(t, name)
+                              for t in (grads[0], jparams, jnew))
+        np.testing.assert_allclose(param.grad.numpy(), jg, rtol=RTOL,
+                                   atol=ATOL, err_msg=f"grad {name}")
+        got, big = param.detach().numpy(), np.abs(jg) > 1e-4
+        np.testing.assert_allclose(got[big], jp_new[big], rtol=0, atol=1e-6,
+                                   err_msg=f"param {name}")
+        assert np.all(np.abs(got - jp_old) <= 2e-3 + 1e-6), name
+
+
+def _jax_leaf(tree, name):
+    """The leaf of a JAX ActorCriticParams tree at a port parameter's name
+    ("embed_w", "lstm.wx.0", ...)."""
+    for part in name.split("."):
+        tree = tree[int(part)] if part.isdigit() else getattr(tree, part)
+    return np.asarray(tree)
+
+
+def test_train_step_refuses_bf16_compute():
+    cfg = models.ActorCriticConfig(**CFG)
+    params = models.init_actor_critic(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu")
+    opt = torch.optim.Adam(params.parameters(), lr=1e-3)
+    with pytest.raises(NotImplementedError, match="bf16 slice in ROADMAP"):
+        models.make_train_step(cfg, opt, compute_dtype=torch.bfloat16)

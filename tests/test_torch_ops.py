@@ -77,6 +77,38 @@ def test_logp_entropy_matches_jax_with_masks():
         rtol=RTOL, atol=ATOL)
 
 
+def test_categorical_gradients_match_jax_with_masks():
+    """The stash-free backward of logp_entropy and logp against the JAX
+    package's custom VJPs, with -inf masks, a mask at exactly -1e9 (the
+    clamp is the identity there, so the one-hot term stays), a taken action
+    at -inf and one at -3e9 (strictly below the clamp: no one-hot term), a
+    fully masked row and an extreme logit."""
+    x, a = _masked_logits()
+    x[5, 8] = -3e9                   # taken action below the clamp
+    rng = np.random.default_rng(7)
+    glp, gent = (rng.standard_normal(6).astype(np.float32) for _ in range(2))
+
+    def jax_both(z):
+        lp_, ent_ = jax_ops.logp_entropy(z, jnp.asarray(a))
+        return jnp.sum(lp_ * glp) + jnp.sum(ent_ * gent)
+
+    want = np.asarray(jax.grad(jax_both)(jnp.asarray(x)))
+    want_lp = np.asarray(jax.grad(lambda z: jnp.sum(
+        jax_ops.logp(z, jnp.asarray(a)) * glp))(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    lp, ent = ops.logp_entropy(xt, torch.from_numpy(a))
+    (lp * torch.from_numpy(glp) + ent * torch.from_numpy(gent)).sum().backward()
+    got = xt.grad.numpy()
+    xt.grad = None
+    (ops.logp(xt, torch.from_numpy(a)) * torch.from_numpy(glp)).sum().backward()
+    for name, g, w in (("logp_entropy", got, want),
+                       ("logp", xt.grad.numpy(), want_lp)):
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=name)
+    assert got[5, 8] == 0.0 and got[3, 0] == 0.0      # masked taken actions
+    assert got[1, 2] != 0.0 or glp[1] == 0.0           # -1e9 keeps its term
+
+
 def test_categorical_head_matches_oracles_unmasked():
     rng = np.random.default_rng(1)
     x = rng.standard_normal((4, 5, 7)).astype(np.float32)
