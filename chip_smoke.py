@@ -18,7 +18,10 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 kernels run at the train step's shapes (V2 at S=33, B=256,
                 V1 at S=33, B=32, H=512); V2 must be bitwise repeatable; the
                 layer's autograd.Function (stash forward, backward kernels)
-                is held against autograd through the plain forward.
+                is held against autograd through the plain forward.  The
+                four scan kernels (gae, lambda_returns, td_lambda_loss,
+                td_lambda_err) run at T=1024, B=4096, at a ragged B and at
+                T=1; td_lambda_loss must be bitwise repeatable.
   4. slice   -- the forward and serving path at full width, through the
                 entry points a user calls, with every launch count set to 0
                 just before it and read just after: the LN-LSTM
@@ -43,10 +46,21 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 synchronized work, median of 7 steps).  A second leg at
                 B=32 routes the backward through V1 and is checked the same
                 way, so every ported kernel launches on one of the paths.
-  6. profile -- torch.profiler over one more run of each of the timed calls
-                (forward, serving loop, V-trace, train step): device busy
-                time, idle share of the window and the top kernels by
-                device time.
+  6. onpolicy -- the on-policy learner path, counts set to 0 just before it
+                and read just after: `ops.gae` (T=1024, B=4096),
+                `ops.td_lambda_error` (unit weight with the gradient in
+                value, and a (B,) weight), `ops.ppo_error_with_logp_old`
+                and `ops.ppo_error` with their gradients (B=4096, N=128),
+                then the PPO trainer of examples/ppo_training.py (obs 32,
+                hidden 64, 128 actions, rollouts T=16, B=256; 2 iterations
+                of GAE, logp_old and 4 Adam epochs).  Every output, each
+                epoch's metrics and gradients and the final parameters
+                against the same calls on the CPU; then ms per GAE call, per
+                TD(lambda) forward + backward and per PPO iteration.
+  7. profile -- torch.profiler over one more run of each of the timed calls
+                (forward, serving loop, V-trace, train step, and the three
+                on-policy calls): device busy time, idle share of the
+                window and the top kernels by device time.
 
 Then one `{"kernels": [...]}` line, the nvidia-smi line, and, last, the
 contract line `{"ok": true, "device": {...}}`.  Any failure prints its phase
@@ -240,6 +254,58 @@ def vtrace_bounds(T, B):
     return losses, returns
 
 
+def scan_bounds(T, B):
+    """(bytes, ops) of the four row-constant scan kernels: each input read
+    once (denom (T,) for GAE), each output written once; 6, 4, 7 and 5 f32
+    operations per element."""
+    inputs = (T + 1) * B + T * B
+    return {"gae": (4 * (inputs + T + T * B), 6 * T * B),
+            "lambda_returns": (4 * (inputs + T * B), 4 * T * B),
+            "td_lambda_loss": (4 * (inputs + B), 7 * T * B),
+            "td_lambda_err": (4 * (inputs + T * B), 5 * T * B)}
+
+
+SCAN_ARGS = {"gae": (0.99, 0.97), "lambda_returns": (0.9, 0.8),
+             "td_lambda_loss": (0.9, 0.8), "td_lambda_err": (0.9, 0.8)}
+
+
+def scan_kernel_rows(rng, dev) -> dict:
+    """The four scan kernels against their plain versions: at T=1024,
+    B=4096 (timed, with bounds), at a ragged B (not a multiple of the
+    32-column block) and at T=1; td_lambda_loss must be bitwise
+    repeatable."""
+    rows = {}
+    for T, B in ((1024, 4096), (37, 1000), (1, 77)):
+        value = torch.from_numpy(rng.standard_normal(
+            (T + 1, B), dtype=np.float32)).to(dev)
+        reward = torch.from_numpy(rng.standard_normal(
+            (T, B), dtype=np.float32)).to(dev)
+        bounds = scan_bounds(T, B)
+        for name, scalars in SCAN_ARGS.items():
+            wrapper = getattr(kernels, name)
+            plain = getattr(kernels, name + "_plain")
+            got = wrapper(value, reward, *scalars)
+            again = wrapper(value, reward, *scalars)
+            torch.cuda.synchronize()
+            row = {"shape": f"T={T},B={B}"}
+            if name == "td_lambda_loss":
+                if not torch.equal(got, again):
+                    raise AssertionError("td_lambda_loss: repeated runs "
+                                         "differ")
+                row["bitwise_repeatable"] = True
+            row.update(compare(f"{name} T={T},B={B}", [got],
+                               [plain(value, reward, *scalars)]))
+            if T == 1024:
+                row["ms"] = cuda_ms(lambda: wrapper(value, reward, *scalars),
+                                    7, per_rep=10)
+                row["plain_ms"] = cuda_ms(lambda: plain(value, reward,
+                                                        *scalars), 3,
+                                          warmup=1)
+                row["bound_ms"], row["bound_by"] = bound_ms(*bounds[name])
+            rows[f"{name} T={T}"] = row
+    return rows
+
+
 def bound_ms(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
@@ -319,6 +385,7 @@ def phase_kernels(dev) -> dict:
                 is_w, reward, value, *clips), plain_reps, warmup=1)
             row["bound_ms"], row["bound_by"] = bound_ms(rb, ro)
             rows[f"vtrace_returns_adv T={T}"] = row
+        rows.update(scan_kernel_rows(rng, dev))
     return rows
 
 
@@ -639,6 +706,238 @@ def phase_train(dev) -> dict:
 
 # ------------------------------------------------------------ phase 6 ----
 
+T_OP, B_OP = 1024, 4096             # GAE and TD(lambda): bench.py:550, :676
+B_PPO, N_PPO = 4096, 128            # PPO: bench.py:441
+# The PPO trainer of examples/ppo_training.py with actions=128 and rollouts
+# of T=16, B=256: each epoch's loss runs on a flat (4096, 128) batch.
+PPO_CFG = {"obs_dim": 32, "hidden": 64, "actions": 128, "T": 16, "B": 256}
+PPO_ITERS, PPO_EPOCHS, PPO_LR = 2, 4, 3e-4
+ONPOLICY_KERNELS = ("gae", "lambda_returns", "td_lambda_loss",
+                    "td_lambda_err")
+
+
+def onpolicy_arrays(rng):
+    """numpy-made inputs of the op calls: GAE/TD(lambda) value, reward and
+    a (B,) weight; the PPO batch."""
+    f = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    logit_new = f(B_PPO, N_PPO)
+    return {"value": f(T_OP + 1, B_OP), "reward": f(T_OP, B_OP),
+            "weight": rng.uniform(0, 2, B_OP).astype(np.float32),
+            "logit_new": logit_new,
+            "logit_old": logit_new + 0.3 * f(B_PPO, N_PPO),
+            "action": rng.integers(0, N_PPO, B_PPO),
+            "value_old": f(B_PPO), "value_new": f(B_PPO), "adv": f(B_PPO),
+            "return_": f(B_PPO)}
+
+
+def run_onpolicy_ops(x) -> dict:
+    """ops.gae, ops.td_lambda_error (unit weight, forward and the gradient
+    in value; a (B,) weight) and both PPO losses (forward and the gradients
+    in logit_new and value_new) at the JAX bench's shapes."""
+    out = {"gae": ops.gae(ops.gae_data(x["value"], x["reward"]), 0.99,
+                          0.97)}
+    value = x["value"].clone().requires_grad_()
+    loss = ops.td_lambda_error(ops.td_lambda_data(value, x["reward"], None),
+                               0.9, 0.8)
+    loss.backward()
+    out["td_lambda"], out["td_lambda_dvalue"] = loss.detach(), value.grad
+    out["td_lambda_weighted"] = ops.td_lambda_error(ops.td_lambda_data(
+        x["value"], x["reward"], x["weight"]), 0.9, 0.8)
+    lp_old = ops.logp(x["logit_old"], x["action"])
+    for name, fn, data in (
+            ("ppo_fast", ops.ppo_error_with_logp_old, ops.ppo_fast_data),
+            ("ppo", ops.ppo_error, ops.ppo_data)):
+        logit = x["logit_new"].clone().requires_grad_()
+        vnew = x["value_new"].clone().requires_grad_()
+        old = lp_old if name == "ppo_fast" else x["logit_old"]
+        (pol, vl, ent), (kl, frac) = fn(data(
+            logit, old, x["action"], vnew, x["value_old"], x["adv"],
+            x["return_"], None), 0.2, True, None)
+        (pol + 0.5 * vl - 0.01 * ent).backward()
+        out[name] = torch.stack([pol, vl, ent, kl, frac]).detach()
+        out[name + "_dlogit"], out[name + "_dvalue"] = logit.grad, vnew.grad
+    return out
+
+
+def ppo_params(rng, obs_dim, hidden, actions, **_):
+    """The example's MLP (examples/ppo_training.py:33-43) as numpy arrays."""
+    n = lambda fan_in, *s: (rng.standard_normal(s) / np.sqrt(fan_in)
+                            ).astype(np.float32)
+    return {"w1": n(obs_dim, obs_dim, hidden),
+            "b1": np.zeros(hidden, np.float32),
+            "policy_w": n(hidden, hidden, actions),
+            "policy_b": np.zeros(actions, np.float32),
+            "value_w": n(hidden, hidden, 1),
+            "value_b": np.zeros(1, np.float32)}
+
+
+def ppo_rollouts(rng, iters, obs_dim, actions, T, B, **_):
+    """Synthetic rollouts, one per iteration: observations (T+1, B, obs),
+    rewards (T, B) and the Gumbel noise (T, B, actions) that samples the
+    policy's actions (argmax of logits + noise)."""
+    f = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    return [(f(T + 1, B, obs_dim), 0.1 * f(T, B),
+             rng.gumbel(size=(T, B, actions)).astype(np.float32))
+            for _ in range(iters)]
+
+
+def ppo_forward(p, obs):
+    h = torch.tanh(obs @ p["w1"] + p["b1"])
+    return h @ p["policy_w"] + p["policy_b"], (h @ p["value_w"]
+                                               + p["value_b"])[..., 0]
+
+
+def ppo_collect(p, obs, reward, gumbel):
+    """Roll the policy over the observations and compute the GAE
+    advantages and the old policy's log-prob, once per batch
+    (examples/ppo_training.py:67-82)."""
+    T = reward.shape[0]
+    with torch.no_grad():
+        logits, value = ppo_forward(p, obs)
+        action = torch.argmax(logits[:T] + gumbel, dim=-1)
+        adv = ops.gae(ops.gae_data(value, reward), gamma=0.99, lambda_=0.95)
+        return {"obs": obs[:T], "action": action,
+                "logp_old": ops.logp(logits[:T], action),
+                "value_old": value[:T], "adv": adv,
+                "return_": adv + value[:T]}
+
+
+def ppo_loss(p, batch):
+    """One epoch's loss on the flat (T*B, ...) batch
+    (examples/ppo_training.py:84-98): (total, metrics)."""
+    flat = lambda x: x.reshape((-1,) + x.shape[2:])
+    logits, value = ppo_forward(p, batch["obs"])
+    (pol, vl, ent), (kl, frac) = ops.ppo_error_with_logp_old(
+        ops.ppo_fast_data(flat(logits), flat(batch["logp_old"]),
+                          flat(batch["action"]), flat(value),
+                          flat(batch["value_old"]), flat(batch["adv"]),
+                          flat(batch["return_"]), None),
+        clip_ratio=0.2, use_value_clip=True, dual_clip=None)
+    total = pol + 0.5 * vl - 0.01 * ent
+    return total, {"total": total, "policy": pol, "value": vl,
+                   "entropy": ent, "approx_kl": kl, "clipfrac": frac}
+
+
+def ppo_iteration(p, opt, rollout, epochs):
+    """Collect, then `epochs` Adam steps on the batch: each epoch's metrics
+    (detached) and gradients."""
+    batch = ppo_collect(p, *rollout)
+    log = []
+    for _ in range(epochs):
+        total, metrics = ppo_loss(p, batch)
+        opt.zero_grad()
+        total.backward()
+        log.append(({k: v.detach() for k, v in metrics.items()},
+                    {k: v.grad.clone() for k, v in p.items()}))
+        opt.step()
+    return log
+
+
+def ppo_setup(arrays, rollouts_np, dev):
+    """Parameters (copies: Adam updates them in place), their Adam and the
+    rollouts, on dev."""
+    p = {k: torch.tensor(v, device=dev, requires_grad=True)
+         for k, v in arrays.items()}
+    rollouts = [tuple(torch.from_numpy(a).to(dev) for a in r)
+                for r in rollouts_np]
+    return p, torch.optim.Adam(p.values(), lr=PPO_LR), rollouts
+
+
+def ppo_train(arrays, rollouts_np, dev):
+    """PPO_ITERS iterations of PPO_EPOCHS epochs: the per-epoch log, the
+    final parameters."""
+    p, opt, rollouts = ppo_setup(arrays, rollouts_np, dev)
+    log = [entry for r in rollouts
+           for entry in ppo_iteration(p, opt, r, PPO_EPOCHS)]
+    return log, p
+
+
+def check_adam_params(name, got, want, grads, lr, steps) -> dict:
+    """Updated parameters, card against CPU: within 1e-6 where |g| > 1e-4
+    at every step, else within 2 * lr per step (Adam's update is lr *
+    g / (|g| + eps) at first, so an entry whose gradient lies at the noise
+    floor may move either way on the two sides)."""
+    out = {}
+    for k in want:
+        g, w = got[k].detach().cpu(), want[k].detach()
+        big = torch.stack([gr[k].abs() for gr in grads]).amin(0) > 1e-4
+        err_big = float((g - w)[big].abs().max()) if big.any() else 0.0
+        err_small = float((g - w)[~big].abs().max()) if (~big).any() else 0.0
+        if err_big > 1e-6 or err_small > 2 * lr * steps + 1e-6:
+            raise AssertionError(f"{name} param {k}: {err_big} where "
+                                 f"|g| > 1e-4, {err_small} elsewhere")
+        out[k] = {"max_abs_err_big_g": err_big,
+                  "max_abs_err_small_g": err_small,
+                  "n_small_g": int((~big).sum())}
+    return out
+
+
+def phase_onpolicy(dev) -> dict:
+    rng = np.random.default_rng(SEED + 4)
+    x_np = onpolicy_arrays(rng)
+    ppo_np = ppo_params(rng, **PPO_CFG)
+    rollouts_np = ppo_rollouts(rng, PPO_ITERS, **PPO_CFG)
+    x = to_dev(x_np, dev)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    out = run_onpolicy_ops(x)
+    log, p = ppo_train(ppo_np, rollouts_np, dev)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_launched("onpolicy", launches, ONPOLICY_KERNELS)
+
+    cpu = torch.device("cpu")
+    ref = run_onpolicy_ops(to_dev(x_np, cpu))
+    ref_log, ref_p = ppo_train(ppo_np, rollouts_np, cpu)
+    result = {"launches": launches,
+              "tolerance": {"rtol": RTOL, "atol": ATOL},
+              "check_vs_cpu": {k: compare(f"onpolicy {k}", [out[k]],
+                                          [ref[k]]) for k in ref}}
+    for i, ((m, g), (rm, rg)) in enumerate(zip(log, ref_log)):
+        result["check_vs_cpu"][f"ppo epoch {i}"] = compare(
+            f"ppo epoch {i} metrics", list(m.values()), list(rm.values()))
+        for k in rg:
+            compare(f"ppo epoch {i} grad {k}", [g[k]], [rg[k]], atol=0.0,
+                    atol_rel=GRAD_ATOL_REL)
+    result["ppo_params_vs_cpu"] = check_adam_params(
+        "ppo", p, ref_p, [g for _, g in ref_log], PPO_LR, len(ref_log))
+    result["ppo_epochs"] = [{k: float(v) for k, v in m.items()}
+                            for m, _ in log]
+    result["td_lambda"] = float(out["td_lambda"])
+
+    timed = onpolicy_timed_calls(x, ppo_np, rollouts_np, dev)
+    result["ms_per_gae_T1024_B4096"] = host_ms(timed["gae_T1024_B4096"], 7)
+    result["ms_per_td_lambda_fwd_bwd_T1024_B4096"] = host_ms(
+        timed["td_lambda_fwd_bwd_T1024_B4096"], 7)
+    result["ms_per_ppo_iteration_T16_B256_N128"] = host_ms(
+        timed["ppo_iteration_T16_B256_N128"], 5)
+    return result
+
+
+def onpolicy_timed_calls(x, ppo_np, rollouts_np, dev):
+    """The three end-to-end calls that are timed: one ops.gae call, one
+    td_lambda_error forward + backward, one PPO iteration (collect and
+    PPO_EPOCHS Adam steps)."""
+    value = x["value"].clone().requires_grad_()
+    p, opt, rollouts = ppo_setup(ppo_np, rollouts_np, dev)
+
+    def td_lambda():
+        value.grad = None
+        ops.td_lambda_error(ops.td_lambda_data(value, x["reward"], None),
+                            0.9, 0.8).backward()
+
+    return {
+        "gae_T1024_B4096": lambda: ops.gae(ops.gae_data(
+            x["value"], x["reward"]), 0.99, 0.97),
+        "td_lambda_fwd_bwd_T1024_B4096": td_lambda,
+        "ppo_iteration_T16_B256_N128": lambda: ppo_iteration(
+            p, opt, rollouts[0], PPO_EPOCHS),
+    }
+
+
+# ------------------------------------------------------------ phase 7 ----
+
 def profile_one(fn) -> dict:
     """torch.profiler over one call of fn after a warm-up call: device busy
     time (the sum of kernel and copy times on the one stream), the wall time
@@ -663,7 +962,7 @@ def profile_one(fn) -> dict:
     busy_ms = sum(r[2] for r in rows) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-            "top": [{"kernel": k[:80], "count": c, "ms": t / 1e3}
+            "top": [{"kernel": k[:120], "count": c, "ms": t / 1e3}
                     for k, c, t in rows[:10]]}
 
 
@@ -682,6 +981,12 @@ def phase_profile(dev) -> dict:
     params, step, batch = train_setup(model_arrays(rng), train_batch(rng, B),
                                       dev)
     out[f"train_step_T{T_TR}_B{B}"] = profile_one(lambda: step(params, batch))
+    rng = np.random.default_rng(SEED + 5)
+    x = to_dev(onpolicy_arrays(rng), dev)
+    for name, fn in onpolicy_timed_calls(
+            x, ppo_params(rng, **PPO_CFG),
+            ppo_rollouts(rng, 1, **PPO_CFG), dev).items():
+        out[name] = profile_one(fn)
     return out
 
 
@@ -696,6 +1001,14 @@ KERNELS = (
      "di_hpc_tpu/pallas_kernels/rl_scans.py:558", "vtrace_losses T=1024"),
     ("vtrace_returns_adv", "di_hpc_tpu_torch/csrc/vtrace.cu",
      "di_hpc_tpu/pallas_kernels/rl_scans.py:472", "vtrace_returns_adv T=1024"),
+    ("gae", "di_hpc_tpu_torch/csrc/rl_scans.cu",
+     "di_hpc_tpu/pallas_kernels/rl_scans.py:92", "gae T=1024"),
+    ("lambda_returns", "di_hpc_tpu_torch/csrc/rl_scans.cu",
+     "di_hpc_tpu/pallas_kernels/rl_scans.py:165", "lambda_returns T=1024"),
+    ("td_lambda_loss", "di_hpc_tpu_torch/csrc/rl_scans.cu",
+     "di_hpc_tpu/pallas_kernels/rl_scans.py:213", "td_lambda_loss T=1024"),
+    ("td_lambda_err", "di_hpc_tpu_torch/csrc/rl_scans.cu",
+     "di_hpc_tpu/pallas_kernels/rl_scans.py:236", "td_lambda_err T=1024"),
 )
 
 
@@ -713,6 +1026,7 @@ def main() -> int:
                      ("kernels", lambda: phase_kernels(dev)),
                      ("slice", lambda: phase_slice(dev)),
                      ("train", lambda: phase_train(dev)),
+                     ("onpolicy", lambda: phase_onpolicy(dev)),
                      ("profile", lambda: phase_profile(dev))):
         start = time.perf_counter()
         try:
@@ -725,10 +1039,15 @@ def main() -> int:
               "seconds": time.perf_counter() - start, **results[name]})
 
     rows = results["kernels"]
-    # Launches on each counted path run: the slice, then the train legs.
+    # Launches on each counted path run: the slice, the train legs, the
+    # on-policy path.
     by_path = {"slice": results["slice"]["launches"],
                **{f"train {leg}": results["train"][leg]["launches"]
-                  for leg in results["train"] if leg.startswith("B=")}}
+                  for leg in results["train"] if leg.startswith("B=")},
+               "onpolicy": results["onpolicy"]["launches"]}
+    check_launched("all paths", {name: sum(c[name] for c in by_path.values())
+                                 for name, *_ in KERNELS},
+                   [name for name, *_ in KERNELS])
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(counts[name] for counts in by_path.values()),

@@ -9,7 +9,8 @@ caller passes device="cpu"; CPU tensors run each kernel's plain PyTorch
 version.
 
  - `di_hpc_tpu_torch.origin`  -- plain-PyTorch oracles
- - `di_hpc_tpu_torch.ops`     -- categorical head, V-trace loss
+ - `di_hpc_tpu_torch.ops`     -- scan core, GAE, TD(lambda), PPO,
+                                 categorical head, V-trace loss
  - `di_hpc_tpu_torch.network` -- fused LayerNorm-LSTM
  - `di_hpc_tpu_torch.models`  -- LN-LSTM actor-critic forward and serving
  - `di_hpc_tpu_torch.kernels` -- the CUDA kernels' wrappers, plain versions

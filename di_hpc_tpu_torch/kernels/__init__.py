@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels (CUDA C++ in ../csrc, built on first use)
 and their plain PyTorch versions; the counterpart of
-di_hpc_tpu.pallas_kernels for the kernels ported so far.
+di_hpc_tpu.pallas_kernels for the kernels ported so far (the LSTM layer and
+its backwards, V-trace, GAE, the lambda-returns and the TD(lambda) loss).
 
 Each wrapper runs its plain version when every tensor lies on the CPU,
 launches its kernel for CUDA tensors, and raises on what the kernel cannot
@@ -21,6 +22,14 @@ from .lstm_cell import (
     lstm_layer_stash_plain,
 )
 from .rl_scans import (
+    gae,
+    gae_plain,
+    lambda_returns,
+    lambda_returns_plain,
+    td_lambda_err,
+    td_lambda_err_plain,
+    td_lambda_loss,
+    td_lambda_loss_plain,
     vtrace_losses,
     vtrace_losses_plain,
     vtrace_returns_adv,
@@ -28,7 +37,8 @@ from .rl_scans import (
 )
 
 KERNEL_WRAPPERS = (lstm_layer_fused, lstm_layer_bwd_v2, lstm_layer_bwd_v1,
-                   vtrace_losses, vtrace_returns_adv)
+                   vtrace_losses, vtrace_returns_adv, gae, lambda_returns,
+                   td_lambda_loss, td_lambda_err)
 
 
 def reset_launch_counts() -> None:

@@ -43,6 +43,10 @@ _SIGNATURES = {
     "lstm_layer_bwd_v1_smem_bytes": (ctypes.c_longlong, [_i]),
     "vtrace_losses_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_p]),
     "vtrace_returns_adv_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_p]),
+    "gae_f32": (_i, [_p] * 4 + [_i] * 2 + [_f] * 2 + [_p]),
+    "lambda_returns_f32": (_i, [_p] * 3 + [_i] * 2 + [_f] * 2 + [_p]),
+    "td_lambda_loss_f32": (_i, [_p] * 3 + [_i] * 2 + [_f] * 2 + [_p]),
+    "td_lambda_err_f32": (_i, [_p] * 3 + [_i] * 2 + [_f] * 2 + [_p]),
     "dihpc_error_string": (ctypes.c_char_p, [_i]),
 }
 

@@ -1,5 +1,5 @@
-"""V-trace recurrence kernels: the hand-written Hopper kernels
-(csrc/vtrace.cu) and their plain PyTorch versions.
+"""RL recurrence kernels: the hand-written Hopper kernels (csrc/vtrace.cu,
+csrc/rl_scans.cu) and their plain PyTorch versions.
 
 Counterparts of the V-trace part of di_hpc_tpu/pallas_kernels/rl_scans.py:
 
@@ -18,6 +18,22 @@ advantage with `vtrace_returns_adv` and gives d pg/d lp = -ct*adv/TB,
 d vl/d value[:-1] = 2*ct*(value - vs)/TB, and zeros to the importance
 weights, the rewards and value[T].  `vtrace_returns_adv` has the zero
 gradient of rl_scans.py:507-511.
+
+And of its row-constant-coefficient part (one thread per column walking
+time backwards, csrc/rl_scans.cu):
+
+  - `gae` ~ `gae_fused_pallas`: value (T+1, B), reward (T, B) -> advantage
+    (T, B), dividing by `ops.scan.gae_denominators` as the JAX wrapper does.
+  - `lambda_returns` ~ `lambda_returns_pallas`: the lambda-returns (T, B)
+    for scalar gamma and lambda.
+  - `td_lambda_loss` ~ `td_lambda_loss_pallas`: 0.5 * sum((ret - V[:-1])^2)
+    / TB from per-column partial sums, with the recompute backward of
+    rl_scans.py:317-323: `td_lambda_err` gives e = ret - V[:-1], then
+    d value[:-1] = -ct*e/TB, and value[T] and the rewards get zeros.
+  - `td_lambda_err` ~ `_tdl_err_impl`: e (T, B), a detached tensor.
+
+`gae` and `lambda_returns` have the zero gradient of rl_scans.py:113-116 and
+:179-182.
 """
 
 from __future__ import annotations
@@ -27,7 +43,9 @@ import torch
 from . import _build
 
 __all__ = ["vtrace_losses", "vtrace_losses_plain", "vtrace_returns_adv",
-           "vtrace_returns_adv_plain"]
+           "vtrace_returns_adv_plain", "gae", "gae_plain", "lambda_returns",
+           "lambda_returns_plain", "td_lambda_loss", "td_lambda_loss_plain",
+           "td_lambda_err", "td_lambda_err_plain"]
 
 
 def vtrace_returns_adv_plain(is_weights, reward, value, gamma=0.99,
@@ -147,9 +165,9 @@ def vtrace_returns_adv(is_weights, reward, value, gamma: float = 0.99,
     """V-trace (vs, advantages), each (T, B), the three min(IS, clip)
     planes derived in-kernel.  CPU tensors run the plain version; CUDA
     tensors launch the kernel or raise.  Its gradient is zero."""
-    return _VtraceReturnsAdvFunction.apply(is_weights, reward, value, gamma,
-                                           lambda_, rho_clip, c_clip,
-                                           pg_clip)
+    return _ZeroGradFunction.apply(_vtrace_returns_adv_forward, is_weights,
+                                   reward, value, gamma, lambda_, rho_clip,
+                                   c_clip, pg_clip)
 
 
 vtrace_returns_adv.launches = 0
@@ -174,17 +192,204 @@ def _vtrace_returns_adv_forward(is_weights, reward, value, *clips):
     return ret, adv
 
 
-class _VtraceReturnsAdvFunction(torch.autograd.Function):
-    """vtrace_returns_adv with the zero gradient of rl_scans.py:507-511."""
+class _ZeroGradFunction(torch.autograd.Function):
+    """forward(*args) for a recurrence target: every tensor argument gets a
+    zero gradient (rl_scans.py:113-116, :179-182, :507-511)."""
 
     @staticmethod
-    def forward(ctx, is_weights, reward, value, *clips):
-        ctx.n_clips = len(clips)
-        ctx.save_for_backward(is_weights, reward, value)
-        return _vtrace_returns_adv_forward(is_weights, reward, value, *clips)
+    def forward(ctx, forward, *args):
+        ctx.specs = [(a.shape, a.dtype, a.device)
+                     if isinstance(a, torch.Tensor) else None for a in args]
+        return forward(*args)
 
     @staticmethod
-    def backward(ctx, d_ret, d_adv):
-        grads = tuple(torch.zeros_like(t) if needed else None for t, needed
-                      in zip(ctx.saved_tensors, ctx.needs_input_grad))
-        return (*grads, *(None,) * ctx.n_clips)
+    def backward(ctx, *grads):
+        return (None, *(torch.zeros(spec[0], dtype=spec[1], device=spec[2])
+                        if spec is not None and needed else None
+                        for spec, needed in zip(ctx.specs,
+                                                ctx.needs_input_grad[1:])))
+
+
+# ---------------------------------------------------------------------------
+# Row-constant-coefficient recurrences: GAE, lambda-returns, TD(lambda)
+# ---------------------------------------------------------------------------
+
+def _gae_denominators(T, lambda_, like):
+    from ..ops.scan import gae_denominators   # ops imports this module
+    return gae_denominators(T, lambda_, dtype=like.dtype, device=like.device)
+
+
+def gae_plain(value, reward, gamma=0.99, lambda_=0.97):
+    """The GAE kernel's reverse loop in plain PyTorch: adv (T, B) from
+    detached inputs, dividing by the same denominators."""
+    value, reward = value.detach(), reward.detach()
+    T = reward.shape[0]
+    denom = _gae_denominators(T, lambda_, reward)
+    gl = gamma * lambda_
+    y = torch.zeros_like(value[T])
+    adv = [None] * T
+    for t in range(T - 1, -1, -1):
+        delta = reward[t] + gamma * value[t + 1] - value[t]
+        y = denom[t] * delta + gl * y
+        adv[t] = y / denom[t]
+    return torch.stack(adv)
+
+
+def lambda_returns_plain(value, reward, gamma, lambda_):
+    """The lambda-returns kernel's reverse loop in plain PyTorch: ret (T, B)
+    from detached inputs.  The last step takes gamma on V_T and no carry
+    (_lret_body's b_{T-1} = 0), every earlier step gamma - gamma*lambda on
+    V_{t+1} and gamma*lambda on ret_{t+1}."""
+    value, reward = value.detach(), reward.detach()
+    T = reward.shape[0]
+    gl = gamma * lambda_
+    ret = torch.zeros_like(value[T])
+    g_eff, carry = gamma, 0.0
+    out = [None] * T
+    for t in range(T - 1, -1, -1):
+        ret = reward[t] + g_eff * value[t + 1] + carry * ret
+        g_eff, carry = gamma - gl, gl
+        out[t] = ret
+    return torch.stack(out)
+
+
+def td_lambda_err_plain(value, reward, gamma, lambda_):
+    """e = ret - V[:-1] (T, B) in plain PyTorch, from detached inputs."""
+    return (lambda_returns_plain(value, reward, gamma, lambda_)
+            - value[:-1].detach())
+
+
+def td_lambda_loss_plain(value, reward, gamma, lambda_):
+    """0.5 * sum((ret - V[:-1])^2) / TB in plain PyTorch, summed per column
+    first as the kernel does; differentiable in value[:-1] only."""
+    T, B = reward.shape
+    e = lambda_returns_plain(value, reward, gamma, lambda_) - value[:-1]
+    return 0.5 * (e * e).sum(dim=0).sum() / (T * B)
+
+
+def _check_pair(name, value, reward):
+    """(T, B) of a CUDA kernel's value (T+1, B) and reward (T, B); raises on
+    what the kernel cannot take."""
+    T, B = reward.shape if reward.ndim == 2 else (0, 0)
+    _check(name, {"value": value, "reward": reward}, T, B)
+    return T, B
+
+
+def _launch(name, fn, value, reward, out, gamma, lambda_, *extra):
+    """Launch `fn` on checked inputs on the current stream; raise on a
+    refused launch."""
+    T, B = reward.shape
+    with torch.cuda.device(reward.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = getattr(_build.library().cdll, fn)(
+            value.data_ptr(), reward.data_ptr(), *extra, out.data_ptr(), T,
+            B, float(gamma), float(gamma * lambda_), stream)
+    _build.check_status(name, status)
+
+
+def _gae_forward(value, reward, gamma, lambda_):
+    if _build.on_cpu(value, reward):
+        return gae_plain(value, reward, gamma, lambda_)
+    T, _ = _check_pair("gae", value, reward)
+    denom = _gae_denominators(T, lambda_, reward)
+    adv = torch.empty_like(reward)
+    _launch("gae", "gae_f32", value, reward, adv, gamma, lambda_,
+            denom.data_ptr())
+    gae.launches += 1
+    return adv
+
+
+def _lambda_returns_forward(value, reward, gamma, lambda_):
+    if _build.on_cpu(value, reward):
+        return lambda_returns_plain(value, reward, gamma, lambda_)
+    _check_pair("lambda_returns", value, reward)
+    ret = torch.empty_like(reward)
+    _launch("lambda_returns", "lambda_returns_f32", value, reward, ret, gamma,
+            lambda_)
+    lambda_returns.launches += 1
+    return ret
+
+
+def gae(value, reward, gamma: float = 0.99, lambda_: float = 0.97):
+    """GAE advantages (T, B) from value (T+1, B) and reward (T, B):
+    delta, the recurrence and the divide by the denominators in one pass.
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Its gradient is zero."""
+    return _ZeroGradFunction.apply(_gae_forward, value, reward, gamma,
+                                   lambda_)
+
+
+gae.launches = 0
+
+
+def lambda_returns(value, reward, gamma: float, lambda_: float):
+    """Generalized lambda-returns (T, B) for scalar gamma and lambda from
+    value (T+1, B) and reward (T, B).  CPU tensors run the plain version;
+    CUDA tensors launch the kernel or raise.  Its gradient is zero."""
+    return _ZeroGradFunction.apply(_lambda_returns_forward, value, reward,
+                                   gamma, lambda_)
+
+
+lambda_returns.launches = 0
+
+
+def td_lambda_err(value, reward, gamma: float, lambda_: float):
+    """e = lambda-returns - value[:-1], (T, B), detached: the TD(lambda)
+    loss's backward.  CPU tensors run the plain version; CUDA tensors launch
+    the kernel or raise."""
+    if _build.on_cpu(value, reward):
+        return td_lambda_err_plain(value, reward, gamma, lambda_)
+    _check_pair("td_lambda_err", value, reward)
+    err = torch.empty_like(reward)
+    _launch("td_lambda_err", "td_lambda_err_f32", value, reward, err, gamma,
+            lambda_)
+    td_lambda_err.launches += 1
+    return err
+
+
+td_lambda_err.launches = 0
+
+
+def _td_lambda_loss_forward(value, reward, gamma, lambda_):
+    if _build.on_cpu(value, reward):
+        return td_lambda_loss_plain(value, reward, gamma, lambda_)
+    _, B = _check_pair("td_lambda_loss", value, reward)
+    parts = torch.empty((1, B), dtype=torch.float32, device=reward.device)
+    _launch("td_lambda_loss", "td_lambda_loss_f32", value, reward, parts,
+            gamma, lambda_)
+    td_lambda_loss.launches += 1
+    # One partial per column, summed by torch.sum in a fixed order: no float
+    # atomics, so repeated runs are bitwise equal.
+    return 0.5 * parts.sum() / reward.numel()
+
+
+class _TDLambdaLossFunction(torch.autograd.Function):
+    """td_lambda_loss with the recompute backward of rl_scans.py:317-323."""
+
+    @staticmethod
+    def forward(ctx, value, reward, gamma, lambda_):
+        ctx.scalars = (gamma, lambda_)
+        ctx.save_for_backward(value, reward)
+        return _td_lambda_loss_forward(value, reward, gamma, lambda_)
+
+    @staticmethod
+    def backward(ctx, ct):
+        value, reward = ctx.saved_tensors
+        e = td_lambda_err(value, reward, *ctx.scalars)
+        dvalue = torch.zeros_like(value)
+        dvalue[:-1] = (-ct / reward.numel()) * e
+        d_reward = torch.zeros_like(reward) if ctx.needs_input_grad[1] \
+            else None
+        return dvalue, d_reward, None, None
+
+
+def td_lambda_loss(value, reward, gamma: float, lambda_: float):
+    """Unit-weight TD(lambda) loss 0.5 * mean((ret - value[:-1])^2), the
+    returns detached, from value (T+1, B) and reward (T, B) in one kernel
+    pass.  CPU tensors run the plain version; CUDA tensors launch the kernel
+    or raise.  Differentiable in value[:-1]; value[T] and the rewards get
+    zeros."""
+    return _TDLambdaLossFunction.apply(value, reward, gamma, lambda_)
+
+
+td_lambda_loss.launches = 0

@@ -58,3 +58,33 @@ def check_vtrace(op, target_output, behaviour_output, action, value, reward,
         _fail(op, f"reward must have shape {tuple(target_output.shape[:-1])}; "
                   f"got {tuple(reward.shape)}")
     check_time_batch(op, value, reward, weight)
+
+
+def _check_per_sample(op, B, named, weight):
+    for nm, x in named:
+        if x.shape != B:
+            _fail(op, f"{nm} must have shape {tuple(B)}; got "
+                      f"{tuple(x.shape)}")
+    if weight is not None and weight.shape != B:
+        _fail(op, f"weight must have shape {tuple(B)}; got "
+                  f"{tuple(weight.shape)}")
+
+
+def check_ppo(op, logit_new, logit_old, action, value_new, value_old, adv,
+              return_, weight):
+    if logit_old.shape != logit_new.shape:
+        _fail(op, f"logit_old {tuple(logit_old.shape)} must match logit_new "
+                  f"{tuple(logit_new.shape)}")
+    check_categorical(op, logit_new, action, "logit_new")
+    _check_per_sample(op, logit_new.shape[:-1],
+                      (("value_new", value_new), ("value_old", value_old),
+                       ("adv", adv), ("return_", return_)), weight)
+
+
+def check_ppo_fast(op, logit_new, logp_old, action, value_new, value_old,
+                   adv, return_, weight):
+    check_categorical(op, logit_new, action, "logit_new")
+    _check_per_sample(op, logit_new.shape[:-1],
+                      (("logp_old", logp_old), ("value_new", value_new),
+                       ("value_old", value_old), ("adv", adv),
+                       ("return_", return_)), weight)

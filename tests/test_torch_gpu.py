@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
 version on the same inputs, the LSTM layer's autograd.Function against
-autograd through the plain forward, and the forward/serving path and one
-training step on the card against the same calls on the CPU.
+autograd through the plain forward, the forward/serving path, one training
+step and the GAE and TD(lambda) ops on the card against the same calls on
+the CPU.
 
 Every test here is marked `gpu` and skips without a card (decided in the
 `cuda` fixture, never at import).  This file imports no JAX, so it also
@@ -155,7 +156,8 @@ def test_forward_and_serving_on_card_match_cpu(cuda):
         want = run(cpu, torch.device("cpu"))
     assert counts == {"lstm_layer_fused": 4, "lstm_layer_bwd_v2": 0,
                       "lstm_layer_bwd_v1": 0, "vtrace_losses": 1,
-                      "vtrace_returns_adv": 1}
+                      "vtrace_returns_adv": 1, "gae": 0, "lambda_returns": 0,
+                      "td_lambda_loss": 0, "td_lambda_err": 0}
     for i, (g, w) in enumerate(zip(got, want)):
         torch.testing.assert_close(g.cpu(), w, rtol=RTOL, atol=ATOL,
                                    msg=f"output {i}")
@@ -317,3 +319,88 @@ def test_train_step_on_card_matches_cpu(cuda, B):
         big = w.grad.abs() > 10 * ATOL
         torch.testing.assert_close(g.detach().cpu()[big], w.detach()[big],
                                    rtol=0, atol=1e-6, msg=f"param {name}")
+
+
+SCAN_ARGS = {"gae": (0.99, 0.97), "lambda_returns": (0.9, 0.8),
+             "td_lambda_loss": (0.95, 0.7), "td_lambda_err": (0.9, 0.8)}
+
+
+def _scan_inputs(seed, T, B, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dev) for s in ((T + 1, B), (T, B))]
+
+
+# B = 13 and 1000 are not multiples of the kernels' 32-column block; T = 1
+# leaves one step.
+@pytest.mark.parametrize("T,B", [(1, 13), (37, 1000), (130, 64)])
+@pytest.mark.parametrize("name", list(SCAN_ARGS))
+def test_scan_kernels_match_plain(cuda, name, T, B):
+    value, reward = _scan_inputs(20, T, B, cuda)
+    wrapper = getattr(kernels, name)
+    before = wrapper.launches
+    got = wrapper(value, reward, *SCAN_ARGS[name])
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = getattr(kernels, name + "_plain")(value, reward, *SCAN_ARGS[name])
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_td_lambda_loss_is_bitwise_repeatable(cuda):
+    """One partial per column, reduced by torch.sum: no float atomics."""
+    value, reward = _scan_inputs(21, 300, 4100, cuda)
+    first = kernels.td_lambda_loss(value, reward, 0.9, 0.8)
+    second = kernels.td_lambda_loss(value, reward, 0.9, 0.8)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("weight", [None, "B", "TB"])
+def test_gae_and_td_lambda_ops_on_card_match_cpu(cuda, weight):
+    """ops.gae and ops.td_lambda_error (value and gradient in value) on the
+    card against the CPU, with the kernels each path launches: GAE, then
+    the loss kernel and its error kernel for unit weight, the returns kernel
+    with a weight."""
+    T, B = 50, 45
+    value, reward = _scan_inputs(22, T, B, torch.device("cpu"))
+    rng = np.random.default_rng(23)
+    w = {None: None, "B": rng.uniform(0, 2, B),
+         "TB": rng.uniform(0, 2, (T, B))}[weight]
+    w = None if w is None else torch.from_numpy(w.astype(np.float32))
+
+    def run(dev):
+        v = value.to(dev).requires_grad_()
+        adv = ops.gae(ops.gae_data(v, reward.to(dev)), 0.99, 0.95)
+        loss = ops.td_lambda_error(ops.td_lambda_data(
+            v, reward.to(dev), None if w is None else w.to(dev)), 0.9, 0.8)
+        loss.backward()
+        return adv, loss, v.grad
+
+    kernels.reset_launch_counts()
+    got = run(cuda)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = run(torch.device("cpu"))
+    assert counts["gae"] == 1
+    if weight is None:
+        assert counts["td_lambda_loss"] == 1 and counts["td_lambda_err"] == 1
+        assert counts["lambda_returns"] == 0
+    else:
+        assert counts["lambda_returns"] == 1
+        assert counts["td_lambda_loss"] == counts["td_lambda_err"] == 0
+    for name, g, wv in zip(("adv", "loss", "dvalue"), got, want):
+        torch.testing.assert_close(g.cpu(), wv, rtol=RTOL, atol=ATOL,
+                                   msg=name)
+
+
+def test_scan_wrappers_raise_on_what_they_cannot_take(cuda):
+    value, reward = _scan_inputs(24, 6, 40, cuda)
+    for name in SCAN_ARGS:
+        fn = getattr(kernels, name)
+        with pytest.raises(TypeError, match="float32 only"):
+            fn(value.double(), reward.double(), *SCAN_ARGS[name])
+        with pytest.raises(ValueError, match="must be contiguous"):
+            fn(value, reward.t().contiguous().t(), *SCAN_ARGS[name])
+        with pytest.raises(ValueError, match=r"value must be \(7, 40\)"):
+            fn(value[:-1], reward, *SCAN_ARGS[name])
+        with pytest.raises(ValueError, match="all inputs must lie"):
+            fn(value, reward.cpu(), *SCAN_ARGS[name])

@@ -40,7 +40,9 @@ def test_package_imports_without_jax_or_the_jax_package():
     assert result["leaked"] == []
     for sub in ("kernels.lstm_cell", "kernels.rl_scans", "kernels._build",
                 "models.actor_critic_lstm", "models.convert", "network.lstm",
-                "ops.categorical", "ops.vtrace"):
+                "ops.categorical", "ops.vtrace", "ops.scan", "ops.gae",
+                "ops.td", "ops.ppo", "ops._backend", "origin.gae",
+                "origin.td", "origin.ppo"):
         assert "di_hpc_tpu_torch." + sub in result["imported"]
 
 

@@ -154,10 +154,12 @@ def test_non_cpu_inputs_go_to_the_kernel_checks_not_the_plain_version():
 def test_launch_counts_reset():
     kernels.vtrace_losses.launches = 3
     kernels.lstm_layer_bwd_v2.launches = 2
+    kernels.td_lambda_err.launches = 1
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
         "lstm_layer_fused": 0, "lstm_layer_bwd_v2": 0, "lstm_layer_bwd_v1": 0,
-        "vtrace_losses": 0, "vtrace_returns_adv": 0}
+        "vtrace_losses": 0, "vtrace_returns_adv": 0, "gae": 0,
+        "lambda_returns": 0, "td_lambda_loss": 0, "td_lambda_err": 0}
 
 
 def _bwd_np(seed, S, B, H):
