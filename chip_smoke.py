@@ -14,14 +14,17 @@ Phases, each printing one JSON line (`{"phase": ...}`):
   3. kernels -- calls each kernel on the card at the main paths' shapes and
                 holds it against its plain PyTorch version on the same
                 inputs (float32 without TF32 on both sides); times both with
-                CUDA events (median over repetitions).  The LSTM backward
-                kernels run at the train step's shapes (V2 at S=33, B=256,
-                V1 at S=33, B=32, H=512); V2 must be bitwise repeatable; the
-                layer's autograd.Function (stash forward, backward kernels)
-                is held against autograd through the plain forward.  The
-                four scan kernels (gae, lambda_returns, td_lambda_loss,
-                td_lambda_err) run at T=1024, B=4096, at a ragged B and at
-                T=1; td_lambda_loss must be bitwise repeatable.
+                CUDA events (median over repetitions): a kernel's `ms` is one
+                call after the L2 was flushed, `ms_l2_warm` back-to-back
+                calls.  The LSTM backward kernels run at the train step's
+                shapes (V2 at S=33, B=256, V1 at S=33, B=32, H=512); V2 must
+                be bitwise repeatable; the layer's autograd.Function (stash
+                forward, backward kernels) is held against autograd through
+                the plain forward.  The scan kernels (gae, lambda_returns,
+                td_lambda_loss, td_lambda_err, linear_scan both ways with a
+                zero, a scalar and a (B,) boundary, upgo_advantages,
+                upgo_loss) run at T=1024, B=4096, at a ragged B and at T=1;
+                td_lambda_loss and upgo_loss must be bitwise repeatable.
   4. slice   -- the forward and serving path at full width, through the
                 entry points a user calls, with every launch count set to 0
                 just before it and read just after: the LN-LSTM
@@ -57,10 +60,26 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 epoch's metrics and gradients and the final parameters
                 against the same calls on the CPU; then ms per GAE call, per
                 TD(lambda) forward + backward and per PPO iteration.
-  7. profile -- torch.profiler over one more run of each of the timed calls
-                (forward, serving loop, V-trace, train step, and the three
-                on-policy calls): device busy time, idle share of the
-                window and the top kernels by device time.
+  7. upgo    -- the scan entry points, UPGO and the AlphaStar path, counts
+                set to 0 just before it and read just after:
+                `ops.linear_recurrence_{reverse,forward}` ("auto") and
+                `ops.generalized_lambda_returns` with (T, B) gamma and lambda
+                planes at T=1024, B=4096, `ops.upgo_returns` at that shape,
+                `ops.upgo_loss` with its gradient at T=128, B=512, N=128,
+                `network.scatter_connection` (add and cover) with its
+                gradient at B=M=N=256, 16x16, then 3 steps of the train step
+                of examples/alphastar_policy_training.py (its configuration:
+                T=16, B=8, 32 entities, a 128-wide LN-LSTM core, 6 greedy
+                selections; Adam(lr=3e-4); synthetic batches).  Every output,
+                each step's metrics and gradients and the final parameters
+                against the same calls on the CPU; then ms per UPGO loss
+                forward + backward, per scatter add + gradient and per
+                AlphaStar train step.
+  8. profile -- torch.profiler over one more run of each of the timed calls
+                (forward, serving loop, V-trace, train step, the three
+                on-policy calls, the UPGO loss and the AlphaStar train
+                step): device busy time, idle share of the window and the
+                top kernels by device time.
 
 Then one `{"kernels": [...]}` line, the nvidia-smi line, and, last, the
 contract line `{"ok": true, "device": {...}}`.  Any failure prints its phase
@@ -70,6 +89,7 @@ exits non-zero before any result.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -85,7 +105,8 @@ sys.path.insert(0, ROOT)
 
 # Without the rest of the repository beside this script, this import fails
 # and the run ends before it prints anything.
-from di_hpc_tpu_torch import kernels, models, ops, origin  # noqa: E402
+from di_hpc_tpu_torch import (  # noqa: E402
+    kernels, models, network, ops, origin)
 from di_hpc_tpu_torch.kernels import _build  # noqa: E402
 
 # H100 SXM data sheet peaks (dense, 700 W): HBM bytes/s and float32 FLOP/s
@@ -123,7 +144,8 @@ def smi() -> str:
 
 def cuda_ms(fn, reps: int, per_rep: int = 1, warmup: int = 2) -> float:
     """Median over `reps` of the CUDA-event time of `per_rep` calls, per
-    call, in ms."""
+    call, in ms.  Back to back: a call may find its inputs in the L2 that
+    the call before it filled."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -138,6 +160,42 @@ def cuda_ms(fn, reps: int, per_rep: int = 1, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_rep)
     return statistics.median(times)
+
+
+# Written between the timed calls of cold_ms: five times the H100's 50 MB L2.
+L2_FLUSH_BYTES = 256 * 2 ** 20
+# A spin after the flush, so that the card is still busy while the host
+# enqueues the timed call (~0.2 ms at the H100's clocks): the start event
+# then waits on the card, not on the host.
+SPIN_CYCLES = 400_000
+
+
+def cold_ms(fn, reps: int = 7, warmup: int = 2) -> float:
+    """Median over `reps` of the CUDA-event time of one call of fn, each
+    after a write of an L2_FLUSH_BYTES scratch buffer and a spin, both
+    outside the timed events: the call finds none of its inputs in the L2,
+    as a caller that did other work before it would."""
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(reps):
+        scratch.fill_(1.0)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def kernel_ms(fn, per_rep: int) -> dict:
+    """A kernel row's times: `ms` with a cold L2 (cold_ms) and, beside it,
+    `ms_l2_warm` from back-to-back calls (cuda_ms, 7 x per_rep calls)."""
+    return {"ms": cold_ms(fn), "ms_l2_warm": cuda_ms(fn, 7, per_rep=per_rep)}
 
 
 def host_ms(fn, reps: int) -> float:
@@ -296,11 +354,83 @@ def scan_kernel_rows(rng, dev) -> dict:
             row.update(compare(f"{name} T={T},B={B}", [got],
                                [plain(value, reward, *scalars)]))
             if T == 1024:
-                row["ms"] = cuda_ms(lambda: wrapper(value, reward, *scalars),
-                                    7, per_rep=10)
+                row.update(kernel_ms(lambda: wrapper(value, reward,
+                                                     *scalars), per_rep=10))
                 row["plain_ms"] = cuda_ms(lambda: plain(value, reward,
                                                         *scalars), 3,
                                           warmup=1)
+                row["bound_ms"], row["bound_by"] = bound_ms(*bounds[name])
+            rows[f"{name} T={T}"] = row
+    return rows
+
+
+def linear_scan_bound(T, B, boundary: bool):
+    """(bytes, ops) of the linear recurrence: a and b read once (and a (B,)
+    boundary), y written once; one multiply-add per element."""
+    return 4 * (3 * T * B + (B if boundary else 0)), 2 * T * B
+
+
+def upgo_bounds(T, B):
+    """(bytes, ops) of the two UPGO kernels: rhos, reward (and lp) (T, B)
+    and value (T+1, B) read once, adv (T, B) or the (1, B) partials written
+    once; 5 and 7 f32 operations per element (the decision's add and
+    compare, the return's add, the advantage; the loss's multiply-add)."""
+    return {"upgo_advantages": (4 * (4 * T * B + B), 5 * T * B),
+            "upgo_loss": (4 * (4 * T * B + 2 * B), 7 * T * B)}
+
+
+def full_plane_kernel_rows(rng, dev) -> dict:
+    """Kernels 6, 11 and 12 against their plain versions at T=1024, B=4096
+    (timed, with bounds), at a ragged B and at T=1; the linear recurrence in
+    both directions with a zero, a scalar and a (B,) boundary; upgo_loss
+    must be bitwise repeatable."""
+    rows = {}
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                                    ).to(dev)
+    for T, B in ((1024, 4096), (37, 1000), (1, 77)):
+        a, b = f(T, B), torch.from_numpy(rng.uniform(
+            0.5, 1.0, (T, B)).astype(np.float32)).to(dev)
+        boundaries = {"zero": None, "scalar": torch.tensor(0.7, device=dev),
+                      "(B,)": f(B)}
+        for reverse, direction in ((True, "reverse"), (False, "forward")):
+            row = {"shape": f"T={T},B={B}", "vs_plain": {}}
+            for kind, y in boundaries.items():
+                got = kernels.linear_scan(a, b, y, reverse)
+                torch.cuda.synchronize()
+                want = kernels.linear_scan_plain(
+                    a, b, None if y is None else y.expand(B), reverse)
+                row["vs_plain"][kind] = compare(
+                    f"linear_scan {direction} T={T} {kind}", [got], [want])
+            row["max_abs_err"] = max(c["max_abs_err"]
+                                     for c in row["vs_plain"].values())
+            if T == 1024:
+                row.update(kernel_ms(lambda: kernels.linear_scan(
+                    a, b, None, reverse), per_rep=10))
+                row["plain_ms"] = cuda_ms(lambda: kernels.linear_scan_plain(
+                    a, b, None, reverse), 3, warmup=1)
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    *linear_scan_bound(T, B, boundary=False))
+            rows[f"linear_scan {direction} T={T}"] = row
+
+        rhos = torch.exp(0.3 * f(T, B))
+        lp, reward, value = -torch.abs(f(T, B)), f(T, B), f(T + 1, B)
+        bounds = upgo_bounds(T, B)
+        for name, args in (("upgo_advantages", (rhos, reward, value)),
+                           ("upgo_loss", (rhos, lp, reward, value))):
+            wrapper = getattr(kernels, name)
+            plain = getattr(kernels, name + "_plain")
+            got = wrapper(*args)
+            again = wrapper(*args)
+            torch.cuda.synchronize()
+            row = {"shape": f"T={T},B={B}"}
+            if name == "upgo_loss":
+                if not torch.equal(got, again):
+                    raise AssertionError("upgo_loss: repeated runs differ")
+                row["bitwise_repeatable"] = True
+            row.update(compare(f"{name} T={T},B={B}", [got], [plain(*args)]))
+            if T == 1024:
+                row.update(kernel_ms(lambda: wrapper(*args), per_rep=10))
+                row["plain_ms"] = cuda_ms(lambda: plain(*args), 3, warmup=1)
                 row["bound_ms"], row["bound_by"] = bound_ms(*bounds[name])
             rows[f"{name} T={T}"] = row
     return rows
@@ -326,8 +456,8 @@ def phase_kernels(dev) -> dict:
             want = kernels.lstm_layer_plain(*args)
             row = {"shape": f"S={S},B={B},H={H}",
                    **compare(f"lstm_layer S={S}", got, want)}
-            row["ms"] = cuda_ms(lambda: kernels.lstm_layer_fused(*args), 7,
-                                per_rep=3)
+            row.update(kernel_ms(lambda: kernels.lstm_layer_fused(*args),
+                                 per_rep=3))
             row["plain_ms"] = cuda_ms(lambda: kernels.lstm_layer_plain(*args),
                                       5)
             row["bound_ms"], row["bound_by"] = bound_ms(*lstm_bound(S, B, H))
@@ -341,8 +471,8 @@ def phase_kernels(dev) -> dict:
         want = kernels.lstm_layer_stash_plain(*args)
         row = {"shape": f"S={S},B={B},H={H}",
                **compare("lstm_layer_stash", got, want)}
-        row["ms"] = cuda_ms(lambda: kernels.lstm_layer_stash(*args), 7,
-                            per_rep=3)
+        row.update(kernel_ms(lambda: kernels.lstm_layer_stash(*args),
+                             per_rep=3))
         row["plain_ms"] = cuda_ms(
             lambda: kernels.lstm_layer_stash_plain(*args), 5)
         nbytes, flops = lstm_bound(S, B, H)
@@ -366,8 +496,8 @@ def phase_kernels(dev) -> dict:
                                                *clips)
             row = {"shape": f"T={T},B={B}", "bitwise_repeatable": True,
                    **compare(f"vtrace_losses T={T}", got, want)}
-            row["ms"] = cuda_ms(lambda: kernels.vtrace_losses(
-                is_w, lp, reward, value, *clips), 7, per_rep=10)
+            row.update(kernel_ms(lambda: kernels.vtrace_losses(
+                is_w, lp, reward, value, *clips), per_rep=10))
             row["plain_ms"] = cuda_ms(lambda: kernels.vtrace_losses_plain(
                 is_w, lp, reward, value, *clips), plain_reps, warmup=1)
             row["bound_ms"], row["bound_by"] = bound_ms(lb, lo)
@@ -379,13 +509,14 @@ def phase_kernels(dev) -> dict:
                                                     *clips)
             row = {"shape": f"T={T},B={B}",
                    **compare(f"vtrace_returns_adv T={T}", got, want)}
-            row["ms"] = cuda_ms(lambda: kernels.vtrace_returns_adv(
-                is_w, reward, value, *clips), 7, per_rep=10)
+            row.update(kernel_ms(lambda: kernels.vtrace_returns_adv(
+                is_w, reward, value, *clips), per_rep=10))
             row["plain_ms"] = cuda_ms(lambda: kernels.vtrace_returns_adv_plain(
                 is_w, reward, value, *clips), plain_reps, warmup=1)
             row["bound_ms"], row["bound_by"] = bound_ms(rb, ro)
             rows[f"vtrace_returns_adv T={T}"] = row
         rows.update(scan_kernel_rows(rng, dev))
+        rows.update(full_plane_kernel_rows(rng, dev))
     return rows
 
 
@@ -432,7 +563,7 @@ def bwd_kernel_rows(rng, dev) -> dict:
                 raise AssertionError(f"{name}: repeated runs differ")
             row["bitwise_repeatable"] = True
         row.update(compare(name, got, want, atol_rel=BWD_ATOL_REL))
-        row["ms"] = cuda_ms(lambda: wrapper(*args), 7, per_rep=3)
+        row.update(kernel_ms(lambda: wrapper(*args), per_rep=3))
         row["plain_ms"] = cuda_ms(lambda: plain(*args), 3, warmup=1)
         row["bound_ms"], row["bound_by"] = bound_ms(
             *lstm_bwd_bound(name[-2:], S, B, H))
@@ -938,6 +1069,261 @@ def onpolicy_timed_calls(x, ppo_np, rollouts_np, dev):
 
 # ------------------------------------------------------------ phase 7 ----
 
+T_SC, B_SC = 1024, 4096                 # the scan entry points: bench.py:550
+T_UG, B_UG, N_UG = 128, 512, 128        # ops.upgo_loss: bench.py:651
+SC_B, SC_M, SC_N, SC_HW = 256, 256, 256, (16, 16)   # scatter: bench.py:609
+# The train step of examples/alphastar_policy_training.py with its own
+# configuration (main's defaults, :61-63), Adam(lr=3e-4), synthetic batches.
+AS_CFG = {"T": 16, "B": 8, "M": 32, "De": 16, "N": 32, "H": 8, "W": 8,
+          "F": 64, "Hc": 128, "A": 8, "Hs": 64}
+AS_SELECTIONS, AS_LR, AS_STEPS = 6, 3e-4, 3
+UPGO_KERNELS = ("linear_scan", "upgo_loss", "upgo_advantages",
+                "lstm_layer_fused", "lstm_layer_bwd_v1", "vtrace_losses",
+                "vtrace_returns_adv")
+
+
+def upgo_arrays(rng):
+    """numpy-made inputs of the op calls: the scan entry points' a, b, y,
+    value, reward and (T, B) gamma and lambda planes; the UPGO loss's
+    logits, rhos, actions, rewards and values; the scatter's entities and
+    locations."""
+    f = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    u = lambda lo, hi, *s: rng.uniform(lo, hi, s).astype(np.float32)
+    return {"a": f(T_SC, B_SC), "b": u(0.5, 1.0, T_SC, B_SC),
+            "b_row": u(0.5, 1.0, T_SC, 1), "y": f(B_SC),
+            "value": f(T_SC + 1, B_SC), "reward": f(T_SC, B_SC),
+            "gammas": u(0.9, 1.0, T_SC, B_SC),
+            "lambdas": u(0.0, 1.0, T_SC, B_SC),
+            "logits": f(T_UG, B_UG, N_UG),
+            "rhos": np.exp(0.1 * f(T_UG, B_UG)),
+            "action": rng.integers(0, N_UG, (T_UG, B_UG)),
+            "rewards": f(T_UG, B_UG), "values": f(T_UG + 1, B_UG),
+            "sc_x": f(SC_B, SC_M, SC_N),
+            "sc_loc": np.stack([rng.integers(0, SC_HW[0], (SC_B, SC_M)),
+                                rng.integers(0, SC_HW[1], (SC_B, SC_M))],
+                               axis=-1)}
+
+
+def upgo_loss_fwd_bwd(x):
+    """ops.upgo_loss at the bench's T=128, B=512, N=128 with its gradient
+    in the logits: (loss, dlogits)."""
+    logits = x["logits"].clone().requires_grad_()
+    loss = ops.upgo_loss(logits, x["rhos"], x["action"], x["rewards"],
+                         x["values"])
+    loss.backward()
+    return loss.detach(), logits.grad
+
+
+def scatter_fwd_bwd(x, mode):
+    """network.scatter_connection and the gradient of sum(out^2) in x, as
+    the bench's scatter stage: (out, dx)."""
+    xs = x["sc_x"].clone().requires_grad_()
+    out = network.scatter_connection(xs, SC_HW, x["sc_loc"], mode)
+    (out ** 2).sum().backward()
+    return out.detach(), xs.grad
+
+
+def run_upgo_ops(x) -> dict:
+    """The scan entry points under "auto" (the linear recurrence both ways,
+    with a (B,) boundary and a row-constant b; the lambda-returns with (T, B)
+    gamma and lambda planes; the UPGO returns), the UPGO loss with its
+    gradient and both scatter modes with theirs."""
+    out = {"linear_reverse": ops.linear_recurrence_reverse(
+               x["a"], x["b"], x["y"]),
+           "linear_forward": ops.linear_recurrence_forward(
+               x["a"], x["b_row"], 0.5),
+           "lambda_returns": ops.generalized_lambda_returns(
+               x["value"], x["reward"], x["gammas"], x["lambdas"]),
+           "upgo_returns": ops.upgo_returns(x["reward"], x["value"])}
+    out["upgo_loss"], out["upgo_dlogits"] = upgo_loss_fwd_bwd(x)
+    for mode in ("add", "cover"):
+        out[f"scatter_{mode}"], out[f"scatter_{mode}_dx"] = scatter_fwd_bwd(
+            x, mode)
+    return out
+
+
+def alphastar_arrays(rng, De, N, H, W, F, Hc, A, Hs, **_):
+    """The example's Params (init_params, :46-58) at its init scales, as
+    numpy arrays: normal / sqrt(fan_in) weights, a uniform(-g, g) LN-LSTM
+    layer with LN at identity, the selection head of
+    init_entity_selection."""
+    n = lambda fan, *s: (rng.standard_normal(s) / np.sqrt(fan)
+                         ).astype(np.float32)
+    g = 1.0 / np.sqrt(Hc)
+    u = lambda *s: rng.uniform(-g, g, s).astype(np.float32)
+    ln = lambda v: np.full((1, 4 * Hc), v, np.float32)
+    core = origin.LSTMParams((u(N + F, 4 * Hc),), (u(Hc, 4 * Hc),),
+                             u(1, 4 * Hc), ln(1.0), ln(0.0), ln(1.0), ln(0.0))
+    sel = models.EntitySelectionArrays(
+        n(N, N, 4 * Hs), n(Hs, Hs, 4 * Hs), np.zeros(4 * Hs, np.float32),
+        n(Hs, Hs, N))
+    return models.AlphaStarArrays(
+        n(De, De, N), np.zeros(N, np.float32), n(N * H * W, N * H * W, F),
+        core, n(Hc, Hc, A), n(Hc, Hc), n(Hc, Hc, N), sel)
+
+
+def alphastar_batches(rng, steps, T, B, M, De, H, W, A, **_):
+    """Synthetic trajectory batches, one per step, as the example's
+    train_step draws them (:72-80)."""
+    f = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    return [{"ent_feats": f(T + 1, B, M, De),
+             "locations": np.stack([rng.integers(0, H, (T + 1, B, M)),
+                                    rng.integers(0, W, (T + 1, B, M))],
+                                   axis=-1),
+             "actions": rng.integers(0, A, (T, B)),
+             "behaviour": f(T, B, A), "rewards": 0.1 * f(T, B),
+             "entity_num": rng.integers(M // 2, M + 1, (B,))}
+            for _ in range(steps)]
+
+
+def alphastar_loss(p, x, max_selections):
+    """The example's loss_fn (:82-129) on the port: entity encoder, the
+    scatter connection (add), the LN-LSTM core, V-trace and UPGO on the
+    action-type head, the greedy selected-units head with its REINFORCE
+    term.  Returns (total, the example's metrics)."""
+    T1, B, M, N = x["ent_feats"].shape[:3] + (p.ent_w.shape[1],)
+    H, W = x["H"], x["W"]
+    emb = torch.tanh(x["ent_feats"] @ p.ent_w + p.ent_b)          # (T+1,B,M,N)
+    spatial = network.scatter_connection(
+        emb.reshape(T1 * B, M, N), (H, W),
+        x["locations"].reshape(T1 * B, M, 2), "add")
+    spatial = spatial.reshape(T1, B, N * H * W) @ p.spatial_w
+    core_in = torch.cat([emb.mean(dim=2), torch.tanh(spatial)], dim=-1)
+    y, _ = network.lstm_fused(p.core.params(), core_in, None, "LN")
+    value = y @ p.val_w                                            # (T+1, B)
+    logits = y[:-1] @ p.act_w                                      # (T, B, A)
+
+    actions, rewards = x["actions"], x["rewards"]
+    vt = ops.vtrace_error(ops.vtrace_data(logits, x["behaviour"], actions,
+                                          value, rewards, None))
+    logp_b = ops.logp(x["behaviour"], actions).detach()
+    rhos = torch.clamp(torch.exp(ops.logp(logits, actions).detach() - logp_b),
+                       max=1.0)
+    upgo = ops.upgo_loss(logits, rhos, actions, rewards, value)
+
+    ae0 = torch.tanh(y[-1] @ p.ae_w)                               # (B, N)
+    Hs = p.sel.w_hh.shape[0]
+    zeros = torch.zeros((B, Hs), device=y.device)
+    entity_num = x["entity_num"]
+    selected, sel_logits, _, _ = models.select_entities(
+        p.sel, emb[-1], torch.ones((B, M), dtype=torch.bool,
+                                   device=y.device),
+        entity_num, ae0, (zeros, zeros), max_selections)
+    is_end = (selected == entity_num[None, :]).to(torch.int32)
+    after_end = (torch.cumsum(is_end, dim=0) - is_end) > 0
+    sel_logp = torch.where(after_end, torch.zeros((), device=y.device),
+                           ops.logp(sel_logits, selected))         # (S, B)
+    adv = (rewards.sum(dim=0) - value[0]).detach()
+    sel_loss = -torch.mean(adv * sel_logp.sum(dim=0))
+
+    total = (vt.policy_loss + 0.5 * vt.value_loss - 0.01 * vt.entropy_loss
+             + 0.2 * upgo + 0.1 * sel_loss)
+    return total, {"total": total, "pg": vt.policy_loss,
+                   "value": vt.value_loss, "upgo": upgo, "select": sel_loss}
+
+
+def alphastar_setup(arrays, batches_np, dev, H, W, **_):
+    """Params on dev (copies: Adam updates them in place), their Adam and
+    the batches, on dev."""
+    p = models.from_jax_params(arrays, device=dev)
+    batches = [{**to_dev(b, dev), "H": H, "W": W} for b in batches_np]
+    return p, torch.optim.Adam(p.parameters(), lr=AS_LR), batches
+
+
+def alphastar_step(p, opt, batch):
+    """One train step: loss, backward, Adam.  Returns the metrics
+    (detached) and the gradients by parameter name."""
+    opt.zero_grad()
+    total, metrics = alphastar_loss(p, batch, AS_SELECTIONS)
+    total.backward()
+    grads = {k: v.grad.clone() for k, v in p.named_parameters()}
+    opt.step()
+    return {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def _cpu_copy(state: dict) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in state.items()}
+
+
+def phase_upgo(dev) -> dict:
+    rng = np.random.default_rng(SEED + 6)
+    x_np = upgo_arrays(rng)
+    as_np = alphastar_arrays(rng, **AS_CFG)
+    batches_np = alphastar_batches(rng, AS_STEPS, **AS_CFG)
+    x = to_dev(x_np, dev)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    out = run_upgo_ops(x)
+    p, opt, batches = alphastar_setup(as_np, batches_np, dev, **AS_CFG)
+    log, starts = [], []
+    for batch in batches:
+        starts.append((_cpu_copy(p.state_dict()),
+                       copy.deepcopy(opt.state_dict())))
+        log.append(alphastar_step(p, opt, batch))
+        starts[-1] = (*starts[-1], _cpu_copy(p.state_dict()))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_launched("upgo", launches, UPGO_KERNELS)
+
+    cpu = torch.device("cpu")
+    ref = run_upgo_ops(to_dev(x_np, cpu))
+    result = {"launches": launches,
+              "tolerance": {"rtol": RTOL, "atol": ATOL,
+                            "grads_atol_rel_to_max": GRAD_ATOL_REL},
+              "check_vs_cpu": {k: compare(f"upgo {k}", [out[k]], [ref[k]])
+                               for k in ref},
+              "alphastar_params_vs_cpu": {}}
+    # Each CPU step starts from the card's parameters and Adam state before
+    # that step.  Two independent runs would part after the first step:
+    # Adam moves an entry whose gradient lies at the noise floor by +-lr,
+    # in either direction on the two sides, and later steps amplify that.
+    # So every step is held as a first step is: metrics, gradients, and the
+    # updated parameters by check_adam_params.
+    ref_p, ref_opt, ref_batches = alphastar_setup(as_np, batches_np, cpu,
+                                                  **AS_CFG)
+    for i, ((m, g), (p_before, opt_before, p_after)) in enumerate(
+            zip(log, starts)):
+        ref_p.load_state_dict(p_before)
+        ref_opt.load_state_dict(opt_before)
+        rm, rg = alphastar_step(ref_p, ref_opt, ref_batches[i])
+        result["check_vs_cpu"][f"alphastar step {i}"] = compare(
+            f"alphastar step {i} metrics", list(m.values()),
+            list(rm.values()))
+        for k in rg:
+            compare(f"alphastar step {i} grad {k}", [g[k]], [rg[k]],
+                    atol=0.0, atol_rel=GRAD_ATOL_REL)
+        result["alphastar_params_vs_cpu"][f"step {i}"] = check_adam_params(
+            f"alphastar step {i}", p_after, dict(ref_p.named_parameters()),
+            [rg], AS_LR, 1)
+    result["alphastar_steps"] = [{k: float(v) for k, v in m.items()}
+                                 for m, _ in log]
+    result["upgo_loss"] = float(out["upgo_loss"])
+
+    timed = upgo_timed_calls(x, as_np, batches_np, dev)
+    result["ms_per_upgo_loss_fwd_bwd_T128_B512_N128"] = host_ms(
+        timed["upgo_loss_fwd_bwd_T128_B512_N128"], 7)
+    result["ms_per_scatter_add_grad_B256_M256"] = host_ms(
+        timed["scatter_add_grad_B256_M256"], 7)
+    result["ms_per_alphastar_train_step_T16_B8"] = host_ms(
+        timed["alphastar_train_step_T16_B8"], 7)
+    return result
+
+
+def upgo_timed_calls(x, as_np, batches_np, dev):
+    """The three end-to-end calls that are timed: one ops.upgo_loss forward
+    + backward, one scatter add + gradient, one AlphaStar train step."""
+    p, opt, batches = alphastar_setup(as_np, batches_np[:1], dev, **AS_CFG)
+    return {
+        "upgo_loss_fwd_bwd_T128_B512_N128": lambda: upgo_loss_fwd_bwd(x),
+        "scatter_add_grad_B256_M256": lambda: scatter_fwd_bwd(x, "add"),
+        "alphastar_train_step_T16_B8": lambda: alphastar_step(p, opt,
+                                                              batches[0]),
+    }
+
+
+# ------------------------------------------------------------ phase 8 ----
+
 def profile_one(fn) -> dict:
     """torch.profiler over one call of fn after a warm-up call: device busy
     time (the sum of kernel and copy times on the one stream), the wall time
@@ -967,8 +1353,9 @@ def profile_one(fn) -> dict:
 
 
 def phase_profile(dev) -> dict:
-    """profile_one over each timed call of the slice, then the train step
-    at B=256."""
+    """profile_one over each timed call of the slice, the train step at
+    B=256, the three on-policy calls, the UPGO loss and the AlphaStar train
+    step."""
     _, params, obs, serve_obs, _, _, _, big_x = slice_inputs(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
@@ -987,6 +1374,14 @@ def phase_profile(dev) -> dict:
             x, ppo_params(rng, **PPO_CFG),
             ppo_rollouts(rng, 1, **PPO_CFG), dev).items():
         out[name] = profile_one(fn)
+    rng = np.random.default_rng(SEED + 7)
+    x = to_dev(upgo_arrays(rng), dev)
+    as_np = alphastar_arrays(rng, **AS_CFG)
+    timed = upgo_timed_calls(x, as_np, alphastar_batches(rng, 1, **AS_CFG),
+                             dev)
+    for name in ("upgo_loss_fwd_bwd_T128_B512_N128",
+                 "alphastar_train_step_T16_B8"):
+        out[name] = profile_one(timed[name])
     return out
 
 
@@ -1009,6 +1404,13 @@ KERNELS = (
      "di_hpc_tpu/pallas_kernels/rl_scans.py:213", "td_lambda_loss T=1024"),
     ("td_lambda_err", "di_hpc_tpu_torch/csrc/rl_scans.cu",
      "di_hpc_tpu/pallas_kernels/rl_scans.py:236", "td_lambda_err T=1024"),
+    ("linear_scan", "di_hpc_tpu_torch/csrc/linear_scan.cu",
+     "di_hpc_tpu/pallas_kernels/linear_scan.py:124",
+     "linear_scan reverse T=1024"),
+    ("upgo_advantages", "di_hpc_tpu_torch/csrc/rl_scans.cu",
+     "di_hpc_tpu/pallas_kernels/rl_scans.py:333", "upgo_advantages T=1024"),
+    ("upgo_loss", "di_hpc_tpu_torch/csrc/rl_scans.cu",
+     "di_hpc_tpu/pallas_kernels/rl_scans.py:391", "upgo_loss T=1024"),
 )
 
 
@@ -1027,6 +1429,7 @@ def main() -> int:
                      ("slice", lambda: phase_slice(dev)),
                      ("train", lambda: phase_train(dev)),
                      ("onpolicy", lambda: phase_onpolicy(dev)),
+                     ("upgo", lambda: phase_upgo(dev)),
                      ("profile", lambda: phase_profile(dev))):
         start = time.perf_counter()
         try:
@@ -1040,11 +1443,12 @@ def main() -> int:
 
     rows = results["kernels"]
     # Launches on each counted path run: the slice, the train legs, the
-    # on-policy path.
+    # on-policy path, the UPGO/AlphaStar path.
     by_path = {"slice": results["slice"]["launches"],
                **{f"train {leg}": results["train"][leg]["launches"]
                   for leg in results["train"] if leg.startswith("B=")},
-               "onpolicy": results["onpolicy"]["launches"]}
+               "onpolicy": results["onpolicy"]["launches"],
+               "upgo": results["upgo"]["launches"]}
     check_launched("all paths", {name: sum(c[name] for c in by_path.values())
                                  for name, *_ in KERNELS},
                    [name for name, *_ in KERNELS])
@@ -1054,6 +1458,7 @@ def main() -> int:
          "launches_by_path": {path: counts[name]
                               for path, counts in by_path.items()},
          "max_abs_err": rows[key]["max_abs_err"], "ms": rows[key]["ms"],
+         "ms_l2_warm": rows[key]["ms_l2_warm"],
          "plain_ms": rows[key]["plain_ms"], "bound_ms": rows[key]["bound_ms"],
          "bound_by": rows[key]["bound_by"], "library_ms": None,
          "at": rows[key]["shape"]}

@@ -13,11 +13,14 @@
 //     One device loop, templated on its epilogue, serves all three: it writes
 //     the returns plane, sums (ret_t - V_t)^2 over t, or writes e_t = ret_t -
 //     V_t.
+// And the two UPGO kernels, whose coefficient is a full (T, B) plane of
+// binary lambdas derived from the data (_upgo_kernel, _upgo_loss_kernel):
+// one device loop templated on its epilogue, further below.
 //
 // What bounds it on an H100: memory.  Each input element is read once and
 // costs under 10 f32 operations.  At T=1024, B=4096 the GAE, returns and
 // error kernels move 50.3 MB each (15 us at 3.35 TB/s), the loss kernel
-// 33.6 MB (10 us).
+// 33.6 MB (10 us), each UPGO kernel 67.1 MB (20 us).
 //
 // Design, as csrc/vtrace.cu: one thread owns one batch column and walks time
 // backwards, so the recurrence needs no scan tree and no cross-thread
@@ -129,6 +132,73 @@ int launch_lambda_returns(const float* value, const float* reward, float* out,
   return (int)cudaGetLastError();
 }
 
+// UPGO (rl_scans.py:_upgo_kernel, _upgo_loss_kernel): the binary-lambda
+// return with gamma = 1, walking backwards with r_{t+1}, V_{t+2} and V_{t+1}
+// carried:
+//   d_t   = 1[r_{t+1} + V_{t+2} >= V_{t+1}], d_{T-1} = 0 (the horizon cut);
+//   a_t   = r_t + (1 - d_t) * V_{t+1};
+//   ret_t = a_t + d_t * ret_{t+1};
+//   adv_t = rho_t * (ret_t - V_t).
+// The decision is a branch on data: r_{t+1} + V_{t+2} is one rounded add
+// (__fadd_rn, never contracted into a multiply-add), as in the plain version
+// and the JAX kernel, so all three take the same branch at a tie.  With d
+// binary the other products are exact.  The epilogue writes adv, or sums
+// adv * logp per column into a (1, B) buffer.
+enum class UpgoEpilogue { kAdvantage, kLossSum };
+
+template <UpgoEpilogue kEpi>
+__global__ void __launch_bounds__(kThreads)
+upgo_kernel(const float* __restrict__ rhos, const float* __restrict__ lp,
+            const float* __restrict__ reward,
+            const float* __restrict__ value, float* __restrict__ out, int T,
+            int B) {
+  const int b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= B) return;
+  float v_next = value[(size_t)T * B + b];   // V_{t+1}, starts at V_T
+  float v_next2 = 0.f, r_next = 0.f;         // V_{t+2}, r_{t+1}
+  float ret = 0.f;
+  float sum = 0.f;
+  for (int t0 = T - 1; t0 >= 0; t0 -= kUnroll) {
+    float hv[kUnroll], rv[kUnroll], vv[kUnroll], lv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int t = t0 - u;
+      hv[u] = rv[u] = vv[u] = lv[u] = 0.f;
+      if (t >= 0) {
+        const size_t o = (size_t)t * B + b;
+        hv[u] = __ldg(rhos + o);
+        rv[u] = __ldg(reward + o);
+        vv[u] = __ldg(value + o);
+        if (kEpi == UpgoEpilogue::kLossSum) lv[u] = __ldg(lp + o);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int t = t0 - u;
+      if (t >= 0) {
+        const bool d = t < T - 1 && __fadd_rn(r_next, v_next2) >= v_next;
+        ret = d ? __fadd_rn(rv[u], ret) : __fadd_rn(rv[u], v_next);
+        const float adv = hv[u] * (ret - vv[u]);
+        if (kEpi == UpgoEpilogue::kAdvantage) out[(size_t)t * B + b] = adv;
+        if (kEpi == UpgoEpilogue::kLossSum) sum += adv * lv[u];
+        r_next = rv[u];
+        v_next2 = v_next;
+        v_next = vv[u];
+      }
+    }
+  }
+  if (kEpi == UpgoEpilogue::kLossSum) out[b] = sum;
+}
+
+template <UpgoEpilogue kEpi>
+int launch_upgo(const float* rhos, const float* lp, const float* reward,
+                const float* value, float* out, int T, int B, void* stream) {
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  upgo_kernel<kEpi><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      rhos, lp, reward, value, out, T, B);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -169,6 +239,23 @@ int td_lambda_err_f32(const float* value, const float* reward, float* err,
                       void* stream) {
   return launch_lambda_returns<Epilogue::kError>(value, reward, err, T, B,
                                                  gamma, gamma_lambda, stream);
+}
+
+// rhos, reward (T, B), value (T+1, B) in; adv (T, B) out.
+int upgo_advantages_f32(const float* rhos, const float* reward,
+                        const float* value, float* adv, int T, int B,
+                        void* stream) {
+  return launch_upgo<UpgoEpilogue::kAdvantage>(rhos, nullptr, reward, value,
+                                               adv, T, B, stream);
+}
+
+// rhos, lp, reward (T, B), value (T+1, B) in; parts (1, B) out: sum_t adv_t *
+// lp_t per column.
+int upgo_loss_f32(const float* rhos, const float* lp, const float* reward,
+                  const float* value, float* parts, int T, int B,
+                  void* stream) {
+  return launch_upgo<UpgoEpilogue::kLossSum>(rhos, lp, reward, value, parts,
+                                             T, B, stream);
 }
 
 }  // extern "C"

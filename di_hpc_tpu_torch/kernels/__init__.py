@@ -1,14 +1,22 @@
 """Hand-written Hopper kernels (CUDA C++ in ../csrc, built on first use)
 and their plain PyTorch versions; the counterpart of
-di_hpc_tpu.pallas_kernels for the kernels ported so far (the LSTM layer and
-its backwards, V-trace, GAE, the lambda-returns and the TD(lambda) loss).
+di_hpc_tpu.pallas_kernels, all 12 of its kernels: the LSTM layer and its
+backwards, V-trace, GAE, the lambda-returns, the TD(lambda) loss, UPGO and
+the generic linear recurrence.
 
 Each wrapper runs its plain version when every tensor lies on the CPU,
 launches its kernel for CUDA tensors, and raises on what the kernel cannot
 take.  `wrapper.launches` counts the kernel's launches (the forward layer
-kernel counts on `lstm_layer_fused`, with or without its stash).
+kernel counts on `lstm_layer_fused`, with or without its stash; both
+directions of the linear recurrence count on `linear_scan`).
 """
 
+from .linear_scan import (
+    linear_scan,
+    linear_scan_forward,
+    linear_scan_plain,
+    linear_scan_reverse,
+)
 from .lstm_cell import (
     V2_MIN_BATCH,
     lstm_layer_bwd_v1,
@@ -30,6 +38,10 @@ from .rl_scans import (
     td_lambda_err_plain,
     td_lambda_loss,
     td_lambda_loss_plain,
+    upgo_advantages,
+    upgo_advantages_plain,
+    upgo_loss,
+    upgo_loss_plain,
     vtrace_losses,
     vtrace_losses_plain,
     vtrace_returns_adv,
@@ -38,7 +50,8 @@ from .rl_scans import (
 
 KERNEL_WRAPPERS = (lstm_layer_fused, lstm_layer_bwd_v2, lstm_layer_bwd_v1,
                    vtrace_losses, vtrace_returns_adv, gae, lambda_returns,
-                   td_lambda_loss, td_lambda_err)
+                   td_lambda_loss, td_lambda_err, linear_scan,
+                   upgo_advantages, upgo_loss)
 
 
 def reset_launch_counts() -> None:

@@ -34,6 +34,16 @@ time backwards, csrc/rl_scans.cu):
 
 `gae` and `lambda_returns` have the zero gradient of rl_scans.py:113-116 and
 :179-182.
+
+And of its UPGO part (the same walk over a full plane of binary lambdas
+derived in-kernel, csrc/rl_scans.cu):
+
+  - `upgo_advantages` ~ `upgo_advantages_pallas`: rhos * (upgo_returns -
+    V[:-1]) (T, B), with the zero gradient of rl_scans.py:360-363.
+  - `upgo_loss` ~ `upgo_loss_pallas`: -sum(adv * lp) / TB from per-column
+    partial sums, with the recompute backward of rl_scans.py:452-465:
+    `upgo_advantages` gives adv, d lp = -ct*adv/TB, and rhos, reward and
+    value get zeros.
 """
 
 from __future__ import annotations
@@ -45,7 +55,8 @@ from . import _build
 __all__ = ["vtrace_losses", "vtrace_losses_plain", "vtrace_returns_adv",
            "vtrace_returns_adv_plain", "gae", "gae_plain", "lambda_returns",
            "lambda_returns_plain", "td_lambda_loss", "td_lambda_loss_plain",
-           "td_lambda_err", "td_lambda_err_plain"]
+           "td_lambda_err", "td_lambda_err_plain", "upgo_advantages",
+           "upgo_advantages_plain", "upgo_loss", "upgo_loss_plain"]
 
 
 def vtrace_returns_adv_plain(is_weights, reward, value, gamma=0.99,
@@ -393,3 +404,120 @@ def td_lambda_loss(value, reward, gamma: float, lambda_: float):
 
 
 td_lambda_loss.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# UPGO: binary-lambda returns (full-plane coefficients), advantage, loss
+# ---------------------------------------------------------------------------
+
+def upgo_advantages_plain(rhos, reward, value):
+    """The UPGO kernels' reverse loop in plain PyTorch: adv = rhos * (ret -
+    V[:-1]) (T, B) from detached inputs, with d_t = 1[r_{t+1} + V_{t+2} >=
+    V_{t+1}] (rl_scans.py:343-347), d_{T-1} = 0, and ret_t = r_t + (1 -
+    d_t) * V_{t+1} + d_t * ret_{t+1}."""
+    rhos, reward, value = (x.detach() for x in (rhos, reward, value))
+    T = reward.shape[0]
+    lam = ((reward + value[1:]) >= value[:-1]).to(reward.dtype)
+    d = torch.cat([lam[1:], torch.zeros_like(lam[:1])])
+    a = reward + (1.0 - d) * value[1:]
+    ret = torch.zeros_like(value[T])
+    out = [None] * T
+    for t in range(T - 1, -1, -1):
+        ret = a[t] + d[t] * ret
+        out[t] = ret
+    return rhos * (torch.stack(out) - value[:-1])
+
+
+def upgo_loss_plain(rhos, lp, reward, value):
+    """-sum(adv * lp) / TB in plain PyTorch, summed per column first as the
+    kernel does; differentiable in lp only."""
+    T, B = reward.shape
+    adv = upgo_advantages_plain(rhos, reward, value)
+    return -(adv * lp).sum(dim=0).sum() / (T * B)
+
+
+def _check_upgo(name, tensors: dict):
+    """(T, B) of a UPGO kernel's (T, B) planes and value (T+1, B)."""
+    reward = tensors["reward"]
+    T, B = reward.shape if reward.ndim == 2 else (0, 0)
+    _check(name, tensors, T, B)
+    return T, B
+
+
+def _upgo_advantages_forward(rhos, reward, value):
+    if _build.on_cpu(rhos, reward, value):
+        return upgo_advantages_plain(rhos, reward, value)
+    name = "upgo_advantages"
+    T, B = _check_upgo(name, {"rhos": rhos, "reward": reward,
+                              "value": value})
+    adv = torch.empty_like(reward)
+    with torch.cuda.device(reward.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = _build.library().cdll.upgo_advantages_f32(
+            rhos.data_ptr(), reward.data_ptr(), value.data_ptr(),
+            adv.data_ptr(), T, B, stream)
+    _build.check_status(name, status)
+    upgo_advantages.launches += 1
+    return adv
+
+
+def upgo_advantages(rhos, reward, value):
+    """UPGO advantages rhos * (upgo_returns - value[:-1]) (T, B) from rhos,
+    reward (T, B) and value (T+1, B) in one pass.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise.  Its gradient is zero
+    (rl_scans.py:360-363)."""
+    return _ZeroGradFunction.apply(_upgo_advantages_forward, rhos, reward,
+                                   value)
+
+
+upgo_advantages.launches = 0
+
+
+def _upgo_loss_forward(rhos, lp, reward, value):
+    if _build.on_cpu(rhos, lp, reward, value):
+        return upgo_loss_plain(rhos, lp, reward, value)
+    name = "upgo_loss"
+    T, B = _check_upgo(name, {"rhos": rhos, "lp": lp, "reward": reward,
+                              "value": value})
+    parts = torch.empty((1, B), dtype=torch.float32, device=reward.device)
+    with torch.cuda.device(reward.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = _build.library().cdll.upgo_loss_f32(
+            rhos.data_ptr(), lp.data_ptr(), reward.data_ptr(),
+            value.data_ptr(), parts.data_ptr(), T, B, stream)
+    _build.check_status(name, status)
+    upgo_loss.launches += 1
+    # One partial per column, summed by torch.sum in a fixed order: no float
+    # atomics, so repeated runs are bitwise equal.
+    return -parts.sum() / (T * B)
+
+
+class _UpgoLossFunction(torch.autograd.Function):
+    """upgo_loss with the recompute backward of rl_scans.py:452-465."""
+
+    @staticmethod
+    def forward(ctx, rhos, lp, reward, value):
+        ctx.save_for_backward(rhos, reward, value)
+        return _upgo_loss_forward(rhos, lp, reward, value)
+
+    @staticmethod
+    def backward(ctx, ct):
+        rhos, reward, value = ctx.saved_tensors
+        adv = upgo_advantages(rhos, reward, value)
+        dlp = (-ct / reward.numel()) * adv
+        zeros = [torch.zeros_like(t) if ctx.needs_input_grad[i] else None
+                 for i, t in ((0, rhos), (2, reward), (3, value))]
+        return zeros[0], dlp, zeros[1], zeros[2]
+
+
+def upgo_loss(rhos, lp, reward, value):
+    """UPGO loss -mean(rhos * (upgo_returns - value[:-1]) * lp): the binary
+    lambdas, the return recurrence, the advantage and the loss sum in one
+    kernel pass, from rhos, lp, reward (T, B) and value (T+1, B).  CPU
+    tensors run the plain version; CUDA tensors launch the kernel or raise.
+    Differentiable in lp (d/d lp = -adv/TB, the advantage recomputed by
+    `upgo_advantages`); rhos, reward and value get zeros."""
+    return _UpgoLossFunction.apply(rhos, lp, reward, value)
+
+
+upgo_loss.launches = 0

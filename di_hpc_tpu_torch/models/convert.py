@@ -1,11 +1,13 @@
 """Weight carry-over between the JAX package and the port.
 
 The JAX package keeps its parameters as NamedTuples of arrays
-(ActorCriticParams, LSTMParams).  Converted to numpy (for example
-`jax.tree.map(np.asarray, params)`, which keeps the tuples), they load into
-the port's modules unchanged: both keep the (in, out) weight layout and the
-i, f, o, u gate order.  This module reads the tuples by field name and
-imports nothing of the JAX package.
+(ActorCriticParams, LSTMParams, EntitySelectionParams, and the AlphaStar
+example's Params in examples/alphastar_policy_training.py:35-43).
+Converted to numpy (for example `jax.tree.map(np.asarray, params)`, which
+keeps the tuples), they load into the port's modules unchanged: both keep
+the (in, out) weight layout and the gate orders (i, f, o, u in the LSTM
+layers, torch's i, f, g, o in the selection head's cell).  This module
+reads the tuples by field name and imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -14,15 +16,21 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..network.lstm import LSTMWeights
 from ..origin.rnn import LSTMParams
 from .actor_critic_lstm import ActorCriticParams
+from .entity_selection import EntitySelectionParams
 
-__all__ = ["ActorCriticArrays", "from_jax_params", "to_numpy_params"]
+__all__ = ["ActorCriticArrays", "EntitySelectionArrays", "AlphaStarArrays",
+           "AlphaStarParams", "from_jax_params", "to_numpy_params"]
 
 _AC_FIELDS = ("embed_w", "embed_b", "lstm", "policy_w", "policy_b",
               "value_w", "value_b")
+_SEL_FIELDS = ("w_ih", "w_hh", "bias", "w_query")
+_AS_FIELDS = ("ent_w", "ent_b", "spatial_w", "core", "act_w", "val_w",
+              "ae_w", "sel")
 
 
 class ActorCriticArrays(NamedTuple):
@@ -34,6 +42,45 @@ class ActorCriticArrays(NamedTuple):
     policy_b: np.ndarray
     value_w: np.ndarray
     value_b: np.ndarray
+
+
+class EntitySelectionArrays(NamedTuple):
+    """EntitySelectionParams as numpy arrays, field for field the JAX
+    tuple."""
+    w_ih: np.ndarray
+    w_hh: np.ndarray
+    bias: np.ndarray
+    w_query: np.ndarray
+
+
+class AlphaStarArrays(NamedTuple):
+    """The AlphaStar example's Params as numpy arrays, field for field."""
+    ent_w: np.ndarray               # (De, N) entity encoder
+    ent_b: np.ndarray               # (N,)
+    spatial_w: np.ndarray           # (N*H*W, F) spatial summary
+    core: LSTMParams                # one LN-LSTM layer, N+F -> Hc
+    act_w: np.ndarray               # (Hc, A) action-type head
+    val_w: np.ndarray               # (Hc,)
+    ae_w: np.ndarray                # (Hc, N) core output -> initial embedding
+    sel: EntitySelectionArrays
+
+
+class AlphaStarParams(nn.Module):
+    """The AlphaStar example's Params as an nn.Module, with its field names:
+    the tensors are parameters, `core` an LSTMWeights, `sel` an
+    EntitySelectionParams."""
+
+    def __init__(self, ent_w, ent_b, spatial_w, core: LSTMWeights, act_w,
+                 val_w, ae_w, sel: EntitySelectionParams):
+        super().__init__()
+        self.ent_w = nn.Parameter(ent_w)
+        self.ent_b = nn.Parameter(ent_b)
+        self.spatial_w = nn.Parameter(spatial_w)
+        self.core = core
+        self.act_w = nn.Parameter(act_w)
+        self.val_w = nn.Parameter(val_w)
+        self.ae_w = nn.Parameter(ae_w)
+        self.sel = sel
 
 
 def _tensor(a, device):
@@ -52,12 +99,21 @@ def _lstm_from(tree, device) -> LSTMParams:
 
 
 def from_jax_params(tree, device="cuda"):
-    """numpy ActorCriticParams -> ActorCriticParams module; numpy
-    LSTMParams -> LSTMWeights module.  Float32 on `device`."""
+    """numpy ActorCriticParams -> ActorCriticParams module; the AlphaStar
+    example's Params -> AlphaStarParams; EntitySelectionParams ->
+    EntitySelectionParams module; LSTMParams -> LSTMWeights module.  Float32
+    on `device`."""
     if hasattr(tree, "embed_w"):
         return ActorCriticParams(
             *(_lstm_from(tree.lstm, device) if f == "lstm"
               else _tensor(getattr(tree, f), device) for f in _AC_FIELDS))
+    if hasattr(tree, "ent_w"):
+        return AlphaStarParams(
+            *(from_jax_params(getattr(tree, f), device) if f in ("core", "sel")
+              else _tensor(getattr(tree, f), device) for f in _AS_FIELDS))
+    if hasattr(tree, "w_query"):
+        return EntitySelectionParams(
+            *(_tensor(getattr(tree, f), device) for f in _SEL_FIELDS))
     return LSTMWeights(_lstm_from(tree, device))
 
 
@@ -66,12 +122,21 @@ def _np(t):
 
 
 def to_numpy_params(module):
-    """ActorCriticParams -> ActorCriticArrays; LSTMWeights -> LSTMParams of
-    numpy arrays (None kept for absent LN fields)."""
+    """The inverse of from_jax_params: ActorCriticParams ->
+    ActorCriticArrays, AlphaStarParams -> AlphaStarArrays,
+    EntitySelectionParams -> EntitySelectionArrays, LSTMWeights ->
+    LSTMParams of numpy arrays (None kept for absent LN fields)."""
     if isinstance(module, ActorCriticParams):
         return ActorCriticArrays(
             *(to_numpy_params(module.lstm) if f == "lstm"
               else _np(getattr(module, f)) for f in _AC_FIELDS))
+    if isinstance(module, AlphaStarParams):
+        return AlphaStarArrays(
+            *(to_numpy_params(getattr(module, f)) if f in ("core", "sel")
+              else _np(getattr(module, f)) for f in _AS_FIELDS))
+    if isinstance(module, EntitySelectionParams):
+        return EntitySelectionArrays(
+            *(_np(getattr(module, f)) for f in _SEL_FIELDS))
     p = module.params()
     return LSTMParams(tuple(_np(w) for w in p.wx), tuple(_np(w) for w in p.wh),
                       _np(p.bias), *(_np(x) for x in p[3:]))

@@ -10,3 +10,4 @@ from .lstm import (
     lstm_fused,
     unflatten_lstm_params,
 )
+from .scatter_connection import ScatterConnection, scatter_connection

@@ -24,4 +24,5 @@ from .ppo import (
     ppo_info,
     ppo_loss,
 )
+from .upgo import UPGO, upgo_loss, upgo_returns
 from .vtrace import VTrace, vtrace_data, vtrace_error, vtrace_loss

@@ -60,6 +60,17 @@ def check_vtrace(op, target_output, behaviour_output, action, value, reward,
     check_time_batch(op, value, reward, weight)
 
 
+def check_upgo(op, target_output, rhos, action, rewards, bootstrap_values):
+    check_categorical(op, target_output, action, "target_output")
+    for nm, x in (("rhos", rhos), ("rewards", rewards)):
+        if x.shape != target_output.shape[:-1]:
+            _fail(op, f"{nm} must have shape "
+                      f"{tuple(target_output.shape[:-1])}; got "
+                      f"{tuple(x.shape)}")
+    check_time_batch(op, bootstrap_values, rewards, None, "bootstrap_values",
+                     "rewards")
+
+
 def _check_per_sample(op, B, named, weight):
     for nm, x in named:
         if x.shape != B:

@@ -5,18 +5,22 @@ Every reverse-time recurrence of the op library is an instance of
 
     y_t = a_t + b_t * y_{t+1},        t = T-1 .. 0,   y_T given (usually 0)
 
-(GAE, the TD(lambda) returns, V-trace, UPGO).  Two methods, both plain
-PyTorch and differentiable by autograd:
+(GAE, the TD(lambda) returns, V-trace, UPGO).  Three methods:
 
- - "scan": a sequential loop over T (the baseline);
- - "associative": log-depth doubling over T.  The affine maps f_t(y) = a_t +
-   b_t*y compose associatively, (f @ g)(y) = (a_f + b_f*a_g) + (b_f*b_g)*y,
-   so after step k every row holds the composition of the next 2^k maps.
+ - "scan": a sequential loop over T (the baseline), plain PyTorch;
+ - "associative": log-depth doubling over T, plain PyTorch.  The affine maps
+   f_t(y) = a_t + b_t*y compose associatively, (f @ g)(y) = (a_f + b_f*a_g)
+   + (b_f*b_g)*y, so after step k every row holds the composition of the
+   next 2^k maps;
+ - "pallas": the hand-written kernel of TPU kernel 6
+   (kernels.linear_scan, csrc/linear_scan.cu) for (T, B) inputs; its plain
+   version on CPU tensors.  It is forward-only, as the JAX package's Pallas
+   method is, and raises for inputs that need a gradient.
 
-The JAX package's third method, "pallas", is TPU kernel 6
-(linear_scan.py:_scan_kernel); it belongs to the next slice of the port and
-raises NotImplementedError until then.  "auto" resolves to "associative", as
-JAX's _pick_method does off the TPU.
+"auto" resolves to "pallas" for float32 (T, B) CUDA inputs when no gradient
+is needed through the result, else to "associative" (differentiable by
+autograd).  JAX's TPU thresholds (T >= 32, B >= 128, the VMEM test) are
+facts about the TPU and are not carried over.
 
 `gae_denominators` solves the reference's coupled denominator recurrence in
 closed form; the GAE kernel divides by it.
@@ -28,22 +32,34 @@ from typing import Literal
 
 import torch
 
+from ..kernels.linear_scan import linear_scan_forward, linear_scan_reverse
+
 __all__ = ["Method", "linear_recurrence_reverse", "linear_recurrence_forward",
            "gae_denominators"]
 
 Method = Literal["auto", "associative", "scan", "pallas"]
 
 
-def _resolve(method: str) -> str:
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
+
+
+def _resolve(method: str, a, b, y_end) -> str:
     if method == "auto":
+        a = torch.as_tensor(a)
+        if (a.device.type == "cuda" and a.ndim == 2
+                and a.dtype == torch.float32 and not _needs_grad(a, b, y_end)):
+            return "pallas"
         return "associative"
-    if method == "pallas":
-        raise NotImplementedError(
-            "method='pallas' is TPU kernel 6 (linear_scan.py:_scan_kernel), "
-            "which comes with the full-plane scan slice in ROADMAP; use "
-            "'auto', 'associative' or 'scan'")
-    if method not in ("associative", "scan"):
+    if method not in ("associative", "scan", "pallas"):
         raise ValueError(f"unknown method: {method}")
+    if method == "pallas" and _needs_grad(a, b, y_end):
+        raise ValueError(
+            "method='pallas' runs the forward-only kernel of TPU kernel 6 "
+            "(kernels.linear_scan), which has no gradient, as the JAX "
+            "package's Pallas method has none; use 'associative' or 'scan' "
+            "for inputs that need a gradient")
     return method
 
 
@@ -93,8 +109,10 @@ def linear_recurrence_reverse(a, b, y_last=0.0,
     a: (T, ...) additive terms; b: coefficients broadcastable to a; y_last:
     the terminal value y_T (scalar or broadcastable to a[0]).  Returns
     y_0..y_{T-1}, shaped like a."""
-    method = _resolve(method)
+    method = _resolve(method, a, b, y_last)
     a, b, y = _operands(a, b, y_last)
+    if method == "pallas":
+        return linear_scan_reverse(a, b, y_last)
     if method == "scan":
         return _sequential(a, b, y, range(a.shape[0] - 1, -1, -1))
     if not _is_zero(y_last):    # fold the terminal value into a[T-1]
@@ -106,8 +124,10 @@ def linear_recurrence_forward(a, b, y_first=0.0,
                               method: Method = "auto") -> torch.Tensor:
     """Solve y_t = a_t + b_t * y_{t-1} forwards in time, y_{-1} = y_first
     (the dual of the reverse recurrence; also n-step discounted sums)."""
-    method = _resolve(method)
+    method = _resolve(method, a, b, y_first)
     a, b, y = _operands(a, b, y_first)
+    if method == "pallas":
+        return linear_scan_forward(a, b, y_first)
     if method == "scan":
         return _sequential(a, b, y, range(a.shape[0]))
     if not _is_zero(y_first):   # fold the initial value into a[0]

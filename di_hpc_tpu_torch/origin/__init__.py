@@ -18,12 +18,14 @@ from .rnn import (
     lstm,
     sequence_mask,
 )
+from .scatter_connection import ScatterConnection, scatter_connection
 from .td import (
     generalized_lambda_returns,
     multistep_forward_view,
     td_lambda_data,
     td_lambda_error,
 )
+from .upgo import tb_cross_entropy, upgo_loss, upgo_returns
 from .vtrace import (
     compute_importance_weights,
     vtrace_advantage,

@@ -2,7 +2,10 @@
 version on the same inputs, the LSTM layer's autograd.Function against
 autograd through the plain forward, the forward/serving path, one training
 step and the GAE and TD(lambda) ops on the card against the same calls on
-the CPU.
+the CPU; the full-plane kernels (the linear recurrence, UPGO) against their
+plain versions, the scan entry points, ops.upgo_loss and the scatter
+connection on the card against the CPU, and one step of chip_smoke.py's
+AlphaStar trainer on the card against the CPU.
 
 Every test here is marked `gpu` and skips without a card (decided in the
 `cuda` fixture, never at import).  This file imports no JAX, so it also
@@ -20,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from di_hpc_tpu_torch import kernels, models, ops
+import chip_smoke
+from di_hpc_tpu_torch import kernels, models, network, ops
 
 RTOL, ATOL = 1e-4, 1e-4
 CLIPS = (0.99, 0.95, 1.0, 0.9, 1.2)   # gamma, lambda, rho, c, pg
@@ -157,7 +161,9 @@ def test_forward_and_serving_on_card_match_cpu(cuda):
     assert counts == {"lstm_layer_fused": 4, "lstm_layer_bwd_v2": 0,
                       "lstm_layer_bwd_v1": 0, "vtrace_losses": 1,
                       "vtrace_returns_adv": 1, "gae": 0, "lambda_returns": 0,
-                      "td_lambda_loss": 0, "td_lambda_err": 0}
+                      "td_lambda_loss": 0, "td_lambda_err": 0,
+                      "linear_scan": 0, "upgo_advantages": 0,
+                      "upgo_loss": 0}
     for i, (g, w) in enumerate(zip(got, want)):
         torch.testing.assert_close(g.cpu(), w, rtol=RTOL, atol=ATOL,
                                    msg=f"output {i}")
@@ -404,3 +410,200 @@ def test_scan_wrappers_raise_on_what_they_cannot_take(cuda):
             fn(value[:-1], reward, *SCAN_ARGS[name])
         with pytest.raises(ValueError, match="all inputs must lie"):
             fn(value, reward.cpu(), *SCAN_ARGS[name])
+
+
+# ---------------------------------------------- full-plane scans, UPGO ----
+
+def _full_plane_inputs(seed, T, B, dev):
+    """a, b (T, B) for the linear recurrence; rhos, lp, reward (T, B) and
+    value (T+1, B) for UPGO."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                    ).to(dev)
+    b = torch.from_numpy(rng.uniform(0.5, 1.0, (T, B)).astype(np.float32))
+    return (f(T, B), b.to(dev), torch.exp(0.3 * f(T, B)), -f(T, B).abs(),
+            f(T, B), f(T + 1, B))
+
+
+# B = 13 and 1000 are not multiples of the kernels' 32-column block; T = 1
+# leaves one step.
+@pytest.mark.parametrize("T,B", [(1, 13), (37, 1000), (130, 64)])
+@pytest.mark.parametrize("boundary", ["zero", "scalar", "vector"])
+@pytest.mark.parametrize("reverse", [True, False])
+def test_linear_scan_kernel_matches_plain(cuda, T, B, boundary, reverse):
+    a, b = _full_plane_inputs(25, T, B, cuda)[:2]
+    y = {"zero": None, "scalar": torch.tensor(-0.4, device=cuda),
+         "vector": torch.linspace(-1, 1, B, device=cuda)}[boundary]
+    before = kernels.linear_scan.launches
+    got = kernels.linear_scan(a, b, y, reverse)
+    torch.cuda.synchronize()
+    assert kernels.linear_scan.launches == before + 1
+    want = kernels.linear_scan_plain(a, b, None if y is None else y.expand(B),
+                                     reverse)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("T,B", [(1, 13), (37, 1000), (130, 64)])
+def test_upgo_kernels_match_plain(cuda, T, B):
+    rhos, lp, reward, value = _full_plane_inputs(26, T, B, cuda)[2:]
+    kernels.reset_launch_counts()
+    got_adv = kernels.upgo_advantages(rhos, reward, value)
+    got_loss = kernels.upgo_loss(rhos, lp, reward, value)
+    torch.cuda.synchronize()
+    assert kernels.upgo_advantages.launches == kernels.upgo_loss.launches == 1
+    torch.testing.assert_close(
+        got_adv, kernels.upgo_advantages_plain(rhos, reward, value),
+        rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(
+        got_loss, kernels.upgo_loss_plain(rhos, lp, reward, value),
+        rtol=RTOL, atol=ATOL)
+
+
+def test_upgo_loss_is_bitwise_repeatable(cuda):
+    """One partial per column, reduced by torch.sum: no float atomics."""
+    rhos, lp, reward, value = _full_plane_inputs(27, 300, 4100, cuda)[2:]
+    first = kernels.upgo_loss(rhos, lp, reward, value)
+    second = kernels.upgo_loss(rhos, lp, reward, value)
+    assert torch.equal(first, second)
+
+
+def test_upgo_kernels_break_ties_as_the_plain_version(cuda):
+    """Integer-valued inputs make exact ties r_{t+1} + V_{t+2} = V_{t+1}:
+    the kernel's rounded add and the plain version's take the same branch,
+    so the advantages agree exactly."""
+    rng = np.random.default_rng(28)
+    T, B = 40, 70
+    reward, value = (torch.from_numpy(rng.integers(-2, 3, s).astype(
+        np.float32)).to(cuda) for s in ((T, B), (T + 1, B)))
+    rhos = torch.ones((T, B), device=cuda)
+    got = kernels.upgo_advantages(rhos, reward, value)
+    assert torch.equal(got, kernels.upgo_advantages_plain(rhos, reward,
+                                                          value))
+
+
+def test_scan_entry_points_on_card_match_cpu(cuda):
+    """"auto" on float32 (T, B) CUDA inputs that need no gradient takes the
+    kernel: the linear recurrence both ways, the lambda-returns with (T, B)
+    gamma and lambda planes and the UPGO returns, each against the CPU."""
+    T, B = 45, 70
+    a, b, _, _, reward, value = _full_plane_inputs(29, T, B,
+                                                   torch.device("cpu"))
+    rng = np.random.default_rng(30)
+    g, lam = (torch.from_numpy(rng.uniform(lo, 1, (T, B)).astype(np.float32))
+              for lo in (0.9, 0.0))
+    y = torch.linspace(-1, 1, B)
+
+    def run(dev):
+        to = lambda t: t.to(dev)
+        return (ops.linear_recurrence_reverse(to(a), to(b), to(y)),
+                ops.linear_recurrence_forward(to(a), to(b[:, :1]), 0.5),
+                ops.generalized_lambda_returns(to(value), to(reward), to(g),
+                                               to(lam)),
+                ops.upgo_returns(to(reward), to(value)))
+
+    kernels.reset_launch_counts()
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert kernels.linear_scan.launches == 4
+    for i, (gt, w) in enumerate(zip(got, run(torch.device("cpu")))):
+        torch.testing.assert_close(gt.cpu(), w, rtol=RTOL, atol=ATOL,
+                                   msg=f"output {i}")
+
+
+def test_upgo_loss_op_on_card_matches_cpu(cuda):
+    """ops.upgo_loss and its gradient in the logits: the fused kernel
+    forward and the advantage kernel in the backward, against the CPU."""
+    rng = np.random.default_rng(31)
+    T, B, N = 20, 45, 7
+    logits = rng.standard_normal((T, B, N)).astype(np.float32)
+    rhos = np.exp(0.2 * rng.standard_normal((T, B))).astype(np.float32)
+    action = rng.integers(0, N, (T, B))
+    reward = rng.standard_normal((T, B)).astype(np.float32)
+    value = rng.standard_normal((T + 1, B)).astype(np.float32)
+
+    def run(dev):
+        lg = torch.from_numpy(logits).to(dev).requires_grad_()
+        loss = ops.upgo_loss(lg, *(torch.from_numpy(x).to(dev) for x in
+                                   (rhos, action, reward, value)))
+        loss.backward()
+        return loss, lg.grad
+
+    kernels.reset_launch_counts()
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert kernels.upgo_loss.launches == kernels.upgo_advantages.launches == 1
+    for gt, w in zip(got, run(torch.device("cpu"))):
+        torch.testing.assert_close(gt.detach().cpu(), w, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["add", "cover"])
+def test_scatter_on_card_matches_cpu(cuda, mode):
+    """Forward and the custom backward of the one-hot products, with
+    collisions and one out-of-range entity, against the CPU."""
+    rng = np.random.default_rng(32)
+    B, M, N, H, W = 3, 40, 5, 4, 4
+    x = rng.standard_normal((B, M, N)).astype(np.float32)
+    loc = np.stack([rng.integers(0, H, (B, M)), rng.integers(0, W, (B, M))],
+                   axis=-1)
+    loc[0, 0] = (H, 0)
+    gout = rng.standard_normal((B, N, H, W)).astype(np.float32)
+
+    def run(dev):
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        out = network.scatter_connection(xt, (H, W),
+                                         torch.from_numpy(loc).to(dev), mode)
+        (out * torch.from_numpy(gout).to(dev)).sum().backward()
+        return out.detach(), xt.grad
+
+    for gt, w in zip(run(cuda), run(torch.device("cpu"))):
+        torch.testing.assert_close(gt.cpu(), w, rtol=RTOL, atol=ATOL)
+
+
+def test_alphastar_step_on_card_matches_cpu(cuda):
+    """One step of chip_smoke.py's AlphaStar trainer (the example's
+    configuration, greedy selection) on the card against the CPU: the
+    launches of its path, the metrics, every gradient, and the parameters by
+    the Adam rule of chip_smoke.check_adam_params."""
+    rng = np.random.default_rng(33)
+    arrays = chip_smoke.alphastar_arrays(rng, **chip_smoke.AS_CFG)
+    batches = chip_smoke.alphastar_batches(rng, 1, **chip_smoke.AS_CFG)
+
+    def step(dev):
+        p, opt, (batch,) = chip_smoke.alphastar_setup(
+            arrays, batches, dev, **chip_smoke.AS_CFG)
+        return (*chip_smoke.alphastar_step(p, opt, batch),
+                dict(p.named_parameters()))
+
+    kernels.reset_launch_counts()
+    m, g, params = step(cuda)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for name in ("lstm_layer_fused", "lstm_layer_bwd_v1", "vtrace_losses",
+                 "vtrace_returns_adv", "upgo_loss", "upgo_advantages"):
+        assert counts[name] == 1, (name, counts)
+    wm, wg, want_params = step(torch.device("cpu"))
+    for k in wm:
+        torch.testing.assert_close(m[k].cpu(), wm[k], rtol=RTOL, atol=ATOL,
+                                   msg=k)
+    for k in wg:
+        atol = chip_smoke.GRAD_ATOL_REL * float(wg[k].abs().max())
+        torch.testing.assert_close(g[k].cpu(), wg[k], rtol=RTOL, atol=atol,
+                                   msg=f"grad {k}")
+    chip_smoke.check_adam_params("alphastar", params, want_params, [wg],
+                                 chip_smoke.AS_LR, 1)
+
+
+def test_full_plane_wrappers_raise_on_what_they_cannot_take(cuda):
+    a, b, rhos, lp, reward, value = _full_plane_inputs(34, 6, 40, cuda)
+    with pytest.raises(TypeError, match="float32 only"):
+        kernels.linear_scan(a.double(), b.double())
+    with pytest.raises(ValueError, match="all inputs must lie"):
+        kernels.linear_scan(a, b.cpu())
+    with pytest.raises(ValueError, match=r"a must be \(T, B\)"):
+        kernels.linear_scan(a[..., None], b[..., None])
+    with pytest.raises(ValueError, match=r"value must be \(7, 40\)"):
+        kernels.upgo_advantages(rhos, reward, value[:-1])
+    with pytest.raises(ValueError, match="must be contiguous"):
+        kernels.upgo_loss(rhos, lp.t().contiguous().t(), reward, value)
+    with pytest.raises(TypeError, match="float32 only"):
+        kernels.upgo_loss(rhos, lp.double(), reward, value)

@@ -42,7 +42,10 @@ def test_package_imports_without_jax_or_the_jax_package():
                 "models.actor_critic_lstm", "models.convert", "network.lstm",
                 "ops.categorical", "ops.vtrace", "ops.scan", "ops.gae",
                 "ops.td", "ops.ppo", "ops._backend", "origin.gae",
-                "origin.td", "origin.ppo"):
+                "origin.td", "origin.ppo", "kernels.linear_scan", "ops.upgo",
+                "origin.upgo", "origin.scatter_connection",
+                "network.scatter_connection", "models.actor_critic",
+                "models.entity_selection"):
         assert "di_hpc_tpu_torch." + sub in result["imported"]
 
 

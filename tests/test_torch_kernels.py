@@ -155,11 +155,14 @@ def test_launch_counts_reset():
     kernels.vtrace_losses.launches = 3
     kernels.lstm_layer_bwd_v2.launches = 2
     kernels.td_lambda_err.launches = 1
+    kernels.linear_scan.launches = 4
+    kernels.upgo_loss.launches = 5
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
         "lstm_layer_fused": 0, "lstm_layer_bwd_v2": 0, "lstm_layer_bwd_v1": 0,
         "vtrace_losses": 0, "vtrace_returns_adv": 0, "gae": 0,
-        "lambda_returns": 0, "td_lambda_loss": 0, "td_lambda_err": 0}
+        "lambda_returns": 0, "td_lambda_loss": 0, "td_lambda_err": 0,
+        "linear_scan": 0, "upgo_advantages": 0, "upgo_loss": 0}
 
 
 def _bwd_np(seed, S, B, H):

@@ -163,8 +163,9 @@ def test_linear_recurrence_method_choice():
     assert torch.equal(ops.linear_recurrence_reverse(a, b, method="auto"),
                        ops.linear_recurrence_reverse(a, b,
                                                      method="associative"))
-    with pytest.raises(NotImplementedError, match="kernel 6"):
-        ops.linear_recurrence_forward(a, b, method="pallas")
+    # "pallas" on CPU tensors runs kernel 6's plain version.
+    assert torch.equal(ops.linear_recurrence_forward(a, b, method="pallas"),
+                       kernels.linear_scan_plain(a, b, reverse=False))
     with pytest.raises(ValueError, match="unknown method"):
         ops.linear_recurrence_reverse(a, b, method="bogus")
 
