@@ -25,6 +25,11 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 zero, a scalar and a (B,) boundary, upgo_advantages,
                 upgo_loss) run at T=1024, B=4096, at a ragged B and at T=1;
                 td_lambda_loss and upgo_loss must be bitwise repeatable.
+                The bf16 instantiations of the three LSTM kernels run at the
+                f32 rows' shapes (the forward at S=33 with and without the
+                stash and at S=1, V2 at S=33, B=256, V1 at S=33, B=32),
+                each against its plain bf16 version on the card, bounded at
+                the bf16 tensor-core peak and at bf16 bytes.
   4. slice   -- the forward and serving path at full width, through the
                 entry points a user calls, with every launch count set to 0
                 just before it and read just after: the LN-LSTM
@@ -49,7 +54,22 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 synchronized work, median of 7 steps).  A second leg at
                 B=32 routes the backward through V1 and is checked the same
                 way, so every ported kernel launches on one of the paths.
-  6. onpolicy -- the on-policy learner path, counts set to 0 just before it
+  6. bf16    -- the mixed-precision path, counts set to 0 just before it and
+                read just after: `make_train_step(compute_dtype=
+                torch.bfloat16)` at the flagship's full width, T=32, B=256
+                (the bf16 V2 backward) and B=32 (the bf16 V1), a bf16
+                `actor_critic_forward` over (33, 256), 16 bf16 `actor_step`s
+                at B=256 with the state carried, and `network.lstm_fused(
+                remat=True)` forward + backward at S=33, B=256 in bf16.  Every
+                output finite, every bf16 kernel launched; the train steps'
+                metrics and gradients against the same bf16 step on the CPU
+                and against the float32 step (JAX's bf16 bounds: 0.15 on
+                outputs, 0.25 x max on gradients); the forward and serving
+                outputs against the CPU; the remat path in float32 against
+                the CPU (its bf16 run is chaotic and only reported); then
+                ms per bf16 train step at each B, per bf16 forward and per
+                bf16 serving step.
+  7. onpolicy -- the on-policy learner path, counts set to 0 just before it
                 and read just after: `ops.gae` (T=1024, B=4096),
                 `ops.td_lambda_error` (unit weight with the gradient in
                 value, and a (B,) weight), `ops.ppo_error_with_logp_old`
@@ -60,7 +80,7 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 epoch's metrics and gradients and the final parameters
                 against the same calls on the CPU; then ms per GAE call, per
                 TD(lambda) forward + backward and per PPO iteration.
-  7. upgo    -- the scan entry points, UPGO and the AlphaStar path, counts
+  8. upgo    -- the scan entry points, UPGO and the AlphaStar path, counts
                 set to 0 just before it and read just after:
                 `ops.linear_recurrence_{reverse,forward}` ("auto") and
                 `ops.generalized_lambda_returns` with (T, B) gamma and lambda
@@ -75,11 +95,11 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 against the same calls on the CPU; then ms per UPGO loss
                 forward + backward, per scatter add + gradient and per
                 AlphaStar train step.
-  8. profile -- torch.profiler over one more run of each of the timed calls
+  9. profile -- torch.profiler over one more run of each of the timed calls
                 (forward, serving loop, V-trace, train step, the three
-                on-policy calls, the UPGO loss and the AlphaStar train
-                step): device busy time, idle share of the window and the
-                top kernels by device time.
+                on-policy calls, the UPGO loss, the AlphaStar train step and
+                the bf16 train step): device busy time, idle share of the
+                window and the top kernels by device time.
 
 Then one `{"kernels": [...]}` line, the nvidia-smi line, and, last, the
 contract line `{"ok": true, "device": {...}}`.  Any failure prints its phase
@@ -109,10 +129,13 @@ from di_hpc_tpu_torch import (  # noqa: E402
     kernels, models, network, ops, origin)
 from di_hpc_tpu_torch.kernels import _build  # noqa: E402
 
-# H100 SXM data sheet peaks (dense, 700 W): HBM bytes/s and float32 FLOP/s
-# outside the tensor cores.  The kernels here are float32 FMA code.
+# H100 SXM data sheet peaks (dense, 700 W): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores, and the bf16 tensor-core rate.  The kernels here
+# are float32 FMA code; a bf16 row is bounded at the bf16 rate, the least
+# time the card needs for bf16 work.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 # Kernel vs plain version, both float32 on the card (TF32 off): they differ
 # in summation order (the kernel's k-loop and warp sums against cuBLAS and
@@ -127,6 +150,14 @@ RTOL, ATOL = 1e-4, 1e-4
 # add all S*B rows in another order, so an entry's error follows its
 # tensor's scale rather than its own size.
 BWD_ATOL_REL = 5e-5
+
+# A bf16 kernel against its plain bf16 version on the card: the same f32
+# values up to summation order, rounded to bf16 at the same points, so a
+# value near a rounding boundary can round the other way (one bf16 ulp,
+# 2^-8 relative) and the recurrence carries that on.  The bound is
+# BF16_REL times the output's largest |entry| plus twice the spread between
+# the plain version on the CPU and on the card (the same flips, no kernel).
+BF16_REL = 1e-2
 
 SEED = 20261016
 
@@ -260,39 +291,43 @@ def phase_build() -> dict:
 
 # ------------------------------------------------------------ phase 3 ----
 
-def lstm_inputs(rng, S, B, H, dev):
+def lstm_inputs(rng, S, B, H, dev, dtype=torch.float32):
     G = 4 * H
     g = 1.0 / np.sqrt(H)
     n = lambda *s: rng.standard_normal(s, dtype=np.float32)
     arrays = (n(S, B, G), rng.uniform(-g, g, (H, G)).astype(np.float32),
               1 + 0.1 * n(G), 0.1 * n(G), 1 + 0.1 * n(G), 0.1 * n(G),
               0.1 * n(G), 0.5 * n(B, H), 0.5 * n(B, H))
-    return [torch.from_numpy(a).to(dev) for a in arrays]
+    return [torch.from_numpy(a).to(dev, dtype) for a in arrays]
 
 
-def lstm_bound(S, B, H):
+def lstm_bound(S, B, H, item=4):
+    """(bytes, ops) of the forward with `item`-byte streams."""
     G = 4 * H
-    nbytes = 4 * (S * B * G + H * G + 5 * G + 2 * B * H      # in
-                  + S * B * H + 2 * B * H)                   # out
+    nbytes = item * (S * B * G + H * G + 5 * G + 2 * B * H   # in
+                     + S * B * H + 2 * B * H)                # out
     flops = 2 * S * B * H * G                                # h @ Wh
     return nbytes, flops
 
 
-def lstm_bwd_bound(variant, S, B, H):
-    """(bytes, ops) of the V2 or V1 backward function: each input read once
-    (V2 reads y and c_seq at steps 0..S-2 only), each output written once;
-    V2 does two products with Wh per step (the gh_pre recompute and dh =
-    dg_pre @ Wh^T), V1 one.  LayerNorm and gate math, a few percent of the
-    operations, are not counted."""
+def lstm_bwd_bound(variant, S, B, H, item=4):
+    """(bytes, ops) of the V2 or V1 backward function with `item`-byte
+    streams: each input read once (V2 reads y and c_seq at steps 0..S-2
+    only), each output written once; V2's parameter partials and V1's
+    gh_pre are float32 for either stream type.  V2 does two products with
+    Wh per step (the gh_pre recompute and dh = dg_pre @ Wh^T), V1 one.
+    LayerNorm and gate math, a few percent of the operations, are not
+    counted."""
     G = 4 * H
     if variant == "v2":
         ctas = (B + 7) // 8
-        return (4 * (S * B * G + 2 * (S - 1) * B * H + S * B * H + H * G
-                     + 5 * G + 4 * B * H                             # in
-                     + 2 * S * B * G + ctas * 3 * G + 2 * B * H),    # out
+        return (item * (S * B * G + 2 * (S - 1) * B * H + S * B * H + H * G
+                        + 5 * G + 4 * B * H                          # in
+                        + 2 * S * B * G + 2 * B * H)                 # out
+                + 4 * ctas * 3 * G,
                 4 * S * B * H * G)
-    return (4 * (2 * S * B * G + 3 * S * B * H + H * G + 2 * G + 2 * B * H
-                 + 2 * S * B * G + 2 * B * H),
+    return (item * (S * B * G + 3 * S * B * H + H * G + 2 * G + 2 * B * H
+                    + 2 * S * B * G + 2 * B * H) + 4 * S * B * G,
             2 * S * B * H * G)
 
 
@@ -436,9 +471,9 @@ def full_plane_kernel_rows(rng, dev) -> dict:
     return rows
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -517,6 +552,94 @@ def phase_kernels(dev) -> dict:
             rows[f"vtrace_returns_adv T={T}"] = row
         rows.update(scan_kernel_rows(rng, dev))
         rows.update(full_plane_kernel_rows(rng, dev))
+        rows.update(bf16_kernel_rows(rng, dev))
+    return rows
+
+
+def compare_bf16(name, got, want, spread) -> dict:
+    """compare() of bf16 outputs in float32 at the BF16_REL bound, widened
+    per output by twice its CPU-vs-card spread."""
+    out = {"max_abs_err": 0.0, "max_err_over_max": 0.0, "spread": spread}
+    for i, (g, w, sp) in enumerate(zip(got, want, spread)):
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{name}[{i}]: {g.dtype} vs {w.dtype}")
+        c = compare(f"{name}[{i}]", [g], [w], rtol=0.0, atol=2 * sp,
+                    atol_rel=BF16_REL)
+        out["max_abs_err"] = max(out["max_abs_err"], c["max_abs_err"])
+        out["max_err_over_max"] = max(out["max_err_over_max"],
+                                      c["max_err_over_max"])
+    return out
+
+
+def spread_vs_cpu(plain, args, want) -> list:
+    """Per output: max |plain(args on the CPU) - want| of the card's plain
+    run `want`."""
+    cpu = plain(*[a.cpu() for a in args])
+    return [float((c.float() - w.float().cpu()).abs().max())
+            for c, w in zip(cpu, want)]
+
+
+def bf16_kernel_rows(rng, dev) -> dict:
+    """The bf16 instantiations of the LSTM kernels at the f32 rows' shapes,
+    each against its plain bf16 version on the card (BF16_REL bound), V2's
+    repeatability, times, and bounds at the bf16 tensor-core peak and at
+    bf16 bytes."""
+    rows = {}
+    H, bf16 = 512, torch.bfloat16
+    tol = {"tolerance": {"atol_rel_to_max": BF16_REL,
+                         "plus": "2 x the plain version's CPU-vs-card spread"}}
+    for name, S, B in (("lstm_layer_fused", 33, 256),
+                       ("lstm_layer_stash", 33, 256),
+                       ("lstm_layer_fused", 1, 256)):
+        args = lstm_inputs(rng, S, B, H, dev, bf16)
+        wrapper = getattr(kernels, name)
+        plain = kernels.lstm_layer_stash_plain if name.endswith("stash") \
+            else kernels.lstm_layer_plain
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        row = {"shape": f"S={S},B={B},H={H}", **tol,
+               **compare_bf16(f"{name} bf16 S={S}", got, want,
+                              spread_vs_cpu(plain, args, want))}
+        row.update(kernel_ms(lambda: wrapper(*args), per_rep=3))
+        row["plain_ms"] = cuda_ms(lambda: plain(*args), 5)
+        nbytes, flops = lstm_bound(S, B, H, item=2)
+        if name.endswith("stash"):
+            nbytes += 2 * S * B * H
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                    BF16_FLOP_PER_S)
+        rows[f"{name} bf16 S={S}"] = row
+
+    S = 33
+    for name, B in (("lstm_layer_bwd_v2", 256), ("lstm_layer_bwd_v1", 32)):
+        args = [a.to(bf16) for a in bwd_inputs(rng, S, B, H, dev)]
+        gxp, _, _, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn, dcn = \
+            args
+        y, c_seq, _, _ = kernels.lstm_layer_stash(gxp, wh, glnx, blnx, gln,
+                                                  bln, bias, h0, c0)
+        args[1], args[2] = y, c_seq
+        if name.endswith("v1"):
+            args = (*kernels.lstm_layer_bwd_v1_streams(
+                gxp, y, c_seq, wh, glnx, blnx, bias, h0, c0), c_seq, dy, wh,
+                gln, bln, dhn, dcn)
+        wrapper = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        got = wrapper(*args)
+        again = wrapper(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        row = {"shape": f"S={S},B={B},H={H}", **tol}
+        if name.endswith("v2"):
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"{name} bf16: repeated runs differ")
+            row["bitwise_repeatable"] = True
+        row.update(compare_bf16(f"{name} bf16", got, want,
+                                spread_vs_cpu(plain, args, want)))
+        row.update(kernel_ms(lambda: wrapper(*args), per_rep=3))
+        row["plain_ms"] = cuda_ms(lambda: plain(*args), 3, warmup=1)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            *lstm_bwd_bound(name[-2:], S, B, H, item=2), BF16_FLOP_PER_S)
+        rows[f"{name} bf16 S={S}"] = row
     return rows
 
 
@@ -784,12 +907,14 @@ def train_batch(rng, B):
             f(T_TR, B), f(T_TR, B, ACTIONS))
 
 
-def train_setup(arrays, batch_np, dev):
-    """Params on dev, their Adam(lr=1e-3) train step, and the batch."""
+def train_setup(arrays, batch_np, dev, compute_dtype=None):
+    """Params on dev, their Adam(lr=1e-3) train step (in compute_dtype), and
+    the batch."""
     params = models.from_jax_params(arrays, device=dev)
     step = models.make_train_step(
         models.ActorCriticConfig(OBS, HID, LAYERS, ACTIONS),
-        torch.optim.Adam(params.parameters(), lr=1e-3))
+        torch.optim.Adam(params.parameters(), lr=1e-3),
+        compute_dtype=compute_dtype)
     batch = models.TrainBatch(*(torch.from_numpy(np.asarray(a)).to(dev)
                                 for a in batch_np))
     return params, step, batch
@@ -836,6 +961,191 @@ def phase_train(dev) -> dict:
 
 
 # ------------------------------------------------------------ phase 6 ----
+
+BF16_LEGS = ((256, "lstm_layer_bwd_v2_bf16"), (32, "lstm_layer_bwd_v1_bf16"))
+BF16_SERVE_STEPS = 16
+# The bf16 step on the card against the same bf16 step on the CPU: both run
+# the same bf16 program, but every bf16 GEMM and kernel output is rounded
+# after sums taken in another order, a value near a rounding boundary goes
+# the other way, and the 33-step recurrence carries that on: the kernel
+# rows' plain version alone moves by up to 0.0625 (6 % of max|y|) between
+# the CPU and the card after one 33-step layer, and the model runs two.
+# Metrics: rtol and atol BF16_METRIC_TOL; outputs and gradients:
+# BF16_OUT_REL and BF16_GRAD_REL times the tensor's largest |entry|.
+BF16_METRIC_TOL = 1e-2
+BF16_OUT_REL = 1e-1
+BF16_GRAD_REL = 1e-1
+# bf16 against float32: the bounds of JAX's own bf16 LSTM test
+# (tests/test_pallas_fused.py:376-397).
+VS_F32_OUT, VS_F32_GRAD_REL = 0.15, 0.25
+
+
+def bf16_model(arrays, dev):
+    return models.from_jax_params(arrays, device=dev).to(torch.bfloat16)
+
+
+def run_bf16_inference(params, obs, serve_obs, gen, dev):
+    """A bf16 forward over the unroll and BF16_SERVE_STEPS serving steps
+    with the state carried: every output."""
+    with torch.inference_mode():
+        logits, value, (h, c) = models.actor_critic_forward(params, obs)
+        state = (torch.zeros(LAYERS, B_FWD, HID, device=dev,
+                             dtype=torch.bfloat16),) * 2
+        serve_logits = []
+        for t in range(BF16_SERVE_STEPS):
+            action, step_logits, step_value, state = models.actor_step(
+                params, serve_obs[t], state, gen)
+            serve_logits.append(step_logits)
+    return {"logits": logits, "value": value, "h": h, "c": c,
+            "serve_logits": torch.stack(serve_logits),
+            "serve_value": step_value, "serve_h": state[0],
+            "serve_c": state[1], "serve_action": action}
+
+
+def run_remat(params, x):
+    """network.lstm_fused(remat=True) over x and the gradient of a fixed
+    loss in the LSTM's parameters: (y, grads)."""
+    lstm = params.lstm
+    y, (h, c) = network.lstm_fused(lstm.params(), x, None, "LN", remat=True)
+    (y.float().square().mean() + (h * c).float().mean()).backward()
+    return y.detach(), [p.grad for p in lstm.parameters()]
+
+
+def check_finite(name, tensors) -> None:
+    for i, t in enumerate(tensors):
+        if t.is_floating_point() and not torch.isfinite(t).all():
+            raise AssertionError(f"{name}[{i}]: non-finite values")
+
+
+def phase_bf16(dev) -> dict:
+    rng = np.random.default_rng(SEED + 8)
+    arrays = model_arrays(rng)
+    batches = {B: train_batch(rng, B) for B, _ in BF16_LEGS}
+    obs_np = rng.standard_normal((T_FWD + 1, B_FWD, OBS), dtype=np.float32)
+    serve_np = rng.standard_normal((BF16_SERVE_STEPS, B_FWD, OBS),
+                                   dtype=np.float32)
+    remat_x = rng.standard_normal((T_FWD + 1, B_FWD, HID), dtype=np.float32)
+    bf16 = lambda a: torch.from_numpy(a).to(dev, torch.bfloat16)
+    obs, serve_obs, x = bf16(obs_np), bf16(serve_np), bf16(remat_x)
+    legs = {B: train_setup(arrays, batches[B], dev, torch.bfloat16)
+            for B, _ in BF16_LEGS}
+    infer_params, remat_params = bf16_model(arrays, dev), bf16_model(arrays,
+                                                                     dev)
+    torch.cuda.synchronize()
+
+    # The counted run: both train legs, the forward and serving loop, the
+    # remat forward + backward.
+    kernels.reset_launch_counts()
+    metrics = {B: legs[B][1](legs[B][0], legs[B][2]) for B in legs}
+    infer = run_bf16_inference(infer_params, obs, serve_obs,
+                               torch.Generator(device=dev).manual_seed(SEED),
+                               dev)
+    remat_y, remat_grads = run_remat(remat_params, x)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_launched("bf16", launches, ("lstm_layer_fused_bf16",
+                                      "lstm_layer_bwd_v2_bf16",
+                                      "lstm_layer_bwd_v1_bf16",
+                                      "vtrace_losses", "vtrace_returns_adv"))
+    for name, ts in (("bf16 infer", infer.values()),
+                     ("bf16 remat", [remat_y, *remat_grads]),
+                     *((f"bf16 train B={B}",
+                        [*metrics[B].values(),
+                         *(p.grad for p in legs[B][0].parameters())])
+                       for B in legs)):
+        check_finite(name, ts)
+
+    cpu = torch.device("cpu")
+    out = {"launches": launches,
+           "tolerance": {"vs_cpu": {"metrics": BF16_METRIC_TOL,
+                                    "outputs_rel_to_max": BF16_OUT_REL,
+                                    "grads_rel_to_max": BF16_GRAD_REL},
+                         "vs_f32": {"outputs": VS_F32_OUT,
+                                    "grads_rel_to_max": VS_F32_GRAD_REL}}}
+    for B, _ in BF16_LEGS:
+        params = legs[B][0]
+        ref_params, ref_step, ref_batch = train_setup(arrays, batches[B], cpu,
+                                                      torch.bfloat16)
+        ref = ref_step(ref_params, ref_batch)
+        f32_params, f32_step, f32_batch = train_setup(arrays, batches[B], dev)
+        f32 = f32_step(f32_params, f32_batch)
+        leg = {"metrics": {k: float(v) for k, v in metrics[B].items()},
+               "metrics_vs_cpu": compare(
+                   f"bf16 train B={B} metrics", list(metrics[B].values()),
+                   list(ref.values()), rtol=BF16_METRIC_TOL,
+                   atol=BF16_METRIC_TOL),
+               "metrics_vs_f32": compare(
+                   f"bf16 train B={B} metrics vs f32",
+                   list(metrics[B].values()), list(f32.values()),
+                   rtol=VS_F32_OUT, atol=VS_F32_OUT)}
+        worst_cpu, worst_f32 = 0.0, 0.0
+        for (name, p), (_, q), (_, r) in zip(params.named_parameters(),
+                                             ref_params.named_parameters(),
+                                             f32_params.named_parameters()):
+            worst_cpu = max(worst_cpu, compare(
+                f"bf16 train B={B} grad {name}", [p.grad], [q.grad],
+                rtol=0.0, atol=0.0, atol_rel=BF16_GRAD_REL)[
+                "max_err_over_max"])
+            worst_f32 = max(worst_f32, compare(
+                f"bf16 train B={B} grad {name} vs f32", [p.grad], [r.grad],
+                rtol=0.0, atol=0.0, atol_rel=VS_F32_GRAD_REL)[
+                "max_err_over_max"])
+        leg["grads_vs_cpu_max_err_over_max"] = worst_cpu
+        leg["grads_vs_f32_max_err_over_max"] = worst_f32
+        step, batch = legs[B][1], legs[B][2]
+        leg[f"ms_per_bf16_train_step_T{T_TR}_B{B}"] = host_ms(
+            lambda: step(params, batch), TRAIN_TIMED_STEPS)
+        out[f"B={B}"] = leg
+
+    ref = run_bf16_inference(bf16_model(arrays, cpu), obs.cpu(),
+                             serve_obs.cpu(),
+                             torch.Generator().manual_seed(SEED), cpu)
+    out["infer_vs_cpu"] = {
+        k: compare(f"bf16 {k}", [infer[k]], [ref[k]], rtol=0.0, atol=0.0,
+                   atol_rel=BF16_OUT_REL)
+        for k in infer if k != "serve_action"}
+    # The recurrent path in bf16 rounds at every op, and its 33-step
+    # recurrence is chaotic at that precision: changing one input entry by
+    # one bf16 ulp moves the CPU's own bf16 output by 0.28 of max|y|.  So
+    # the card's bf16 remat run is reported against the CPU's, unbounded,
+    # and the path itself is held in float32, card against CPU.
+    ref_y, ref_grads = run_remat(bf16_model(arrays, cpu), x.cpu())
+    out["remat_bf16_vs_cpu_unbounded"] = {
+        "y_max_err_over_max": float((remat_y.float().cpu() - ref_y.float())
+                                    .abs().max() / ref_y.float().abs().max()),
+        "grads_max_err_over_max": max(
+            float((g.float().cpu() - r.float()).abs().max()
+                  / r.float().abs().max())
+            for g, r in zip(remat_grads, ref_grads))}
+    f32_y, f32_grads = run_remat(models.from_jax_params(arrays, device=dev),
+                                 x.float())
+    ref_y, ref_grads = run_remat(models.from_jax_params(arrays, device=cpu),
+                                 x.float().cpu())
+    out["remat_f32_vs_cpu"] = {
+        "y": compare("f32 remat y", [f32_y], [ref_y]),
+        "grads": compare("f32 remat grads", f32_grads, ref_grads, atol=0.0,
+                         atol_rel=GRAD_ATOL_REL)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    serve_state = (torch.zeros(LAYERS, B_FWD, HID, device=dev,
+                               dtype=torch.bfloat16),) * 2
+
+    def forward():
+        with torch.inference_mode():
+            models.actor_critic_forward(infer_params, obs)
+
+    def serve():
+        st = serve_state
+        with torch.inference_mode():
+            for t in range(BF16_SERVE_STEPS):
+                st = models.actor_step(infer_params, serve_obs[t], st, gen)[3]
+
+    out["ms_per_bf16_forward_S33_B256"] = host_ms(forward, 7)
+    out["ms_per_bf16_actor_step_B256"] = host_ms(serve, 3) / BF16_SERVE_STEPS
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+# ------------------------------------------------------------ phase 7 ----
 
 T_OP, B_OP = 1024, 4096             # GAE and TD(lambda): bench.py:550, :676
 B_PPO, N_PPO = 4096, 128            # PPO: bench.py:441
@@ -1067,7 +1377,7 @@ def onpolicy_timed_calls(x, ppo_np, rollouts_np, dev):
     }
 
 
-# ------------------------------------------------------------ phase 7 ----
+# ------------------------------------------------------------ phase 8 ----
 
 T_SC, B_SC = 1024, 4096                 # the scan entry points: bench.py:550
 T_UG, B_UG, N_UG = 128, 512, 128        # ops.upgo_loss: bench.py:651
@@ -1322,7 +1632,7 @@ def upgo_timed_calls(x, as_np, batches_np, dev):
     }
 
 
-# ------------------------------------------------------------ phase 8 ----
+# ------------------------------------------------------------ phase 9 ----
 
 def profile_one(fn) -> dict:
     """torch.profiler over one call of fn after a warm-up call: device busy
@@ -1354,8 +1664,8 @@ def profile_one(fn) -> dict:
 
 def phase_profile(dev) -> dict:
     """profile_one over each timed call of the slice, the train step at
-    B=256, the three on-policy calls, the UPGO loss and the AlphaStar train
-    step."""
+    B=256 in float32 and in bf16, the three on-policy calls, the UPGO loss
+    and the AlphaStar train step."""
     _, params, obs, serve_obs, _, _, _, big_x = slice_inputs(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
@@ -1368,6 +1678,11 @@ def phase_profile(dev) -> dict:
     params, step, batch = train_setup(model_arrays(rng), train_batch(rng, B),
                                       dev)
     out[f"train_step_T{T_TR}_B{B}"] = profile_one(lambda: step(params, batch))
+    rng = np.random.default_rng(SEED + 9)
+    params, step, batch = train_setup(model_arrays(rng), train_batch(rng, B),
+                                      dev, torch.bfloat16)
+    out[f"bf16_train_step_T{T_TR}_B{B}"] = profile_one(
+        lambda: step(params, batch))
     rng = np.random.default_rng(SEED + 5)
     x = to_dev(onpolicy_arrays(rng), dev)
     for name, fn in onpolicy_timed_calls(
@@ -1411,6 +1726,15 @@ KERNELS = (
      "di_hpc_tpu/pallas_kernels/rl_scans.py:333", "upgo_advantages T=1024"),
     ("upgo_loss", "di_hpc_tpu_torch/csrc/rl_scans.cu",
      "di_hpc_tpu/pallas_kernels/rl_scans.py:391", "upgo_loss T=1024"),
+    ("lstm_layer_fused_bf16", "di_hpc_tpu_torch/csrc/lstm_layer.cu",
+     "di_hpc_tpu/pallas_kernels/lstm_cell.py:115",
+     "lstm_layer_fused bf16 S=33"),
+    ("lstm_layer_bwd_v2_bf16", "di_hpc_tpu_torch/csrc/lstm_layer_bwd.cu",
+     "di_hpc_tpu/pallas_kernels/lstm_cell.py:389",
+     "lstm_layer_bwd_v2 bf16 S=33"),
+    ("lstm_layer_bwd_v1_bf16", "di_hpc_tpu_torch/csrc/lstm_layer_bwd.cu",
+     "di_hpc_tpu/pallas_kernels/lstm_cell.py:276",
+     "lstm_layer_bwd_v1 bf16 S=33"),
 )
 
 
@@ -1421,6 +1745,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in float32, as the TPU's do.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
 
     results = {}
@@ -1428,6 +1754,7 @@ def main() -> int:
                      ("kernels", lambda: phase_kernels(dev)),
                      ("slice", lambda: phase_slice(dev)),
                      ("train", lambda: phase_train(dev)),
+                     ("bf16", lambda: phase_bf16(dev)),
                      ("onpolicy", lambda: phase_onpolicy(dev)),
                      ("upgo", lambda: phase_upgo(dev)),
                      ("profile", lambda: phase_profile(dev))):
@@ -1442,11 +1769,12 @@ def main() -> int:
               "seconds": time.perf_counter() - start, **results[name]})
 
     rows = results["kernels"]
-    # Launches on each counted path run: the slice, the train legs, the
-    # on-policy path, the UPGO/AlphaStar path.
+    # Launches on each counted path run: the slice, the train legs, the bf16
+    # path, the on-policy path, the UPGO/AlphaStar path.
     by_path = {"slice": results["slice"]["launches"],
                **{f"train {leg}": results["train"][leg]["launches"]
                   for leg in results["train"] if leg.startswith("B=")},
+               "bf16": results["bf16"]["launches"],
                "onpolicy": results["onpolicy"]["launches"],
                "upgo": results["upgo"]["launches"]}
     check_launched("all paths", {name: sum(c[name] for c in by_path.values())

@@ -1,7 +1,7 @@
 // LN-LSTM layer forward with the whole time loop inside one kernel launch.
 //
-// Replaces di_hpc_tpu/pallas_kernels/lstm_cell.py:_layer_kernel (f32
-// streams), with its stash mode: given c_seq, the kernel also writes the
+// Replaces di_hpc_tpu/pallas_kernels/lstm_cell.py:_layer_kernel, with f32
+// or bf16 streams and its stash mode: given c_seq, the kernel also writes the
 // cell state of every step for the backward; without it (the serving path
 // and any forward that needs no gradient) that (S, B, H) write is skipped,
 // as the TPU kernel skips it (lstm_cell.py:150-153).  Per step t and batch
@@ -16,10 +16,22 @@
 // E[x]^2, 0), exactly as the TPU kernel's _ln_stats; LN_x and the bias act
 // on the RAW x @ Wx projection gxp, which the caller computes outside.
 //
+// bf16 streams (T = __nv_bfloat16), as the TPU kernel's notes at
+// lstm_cell.py:130-141 set them: gxp, Wh, the five vectors, h0/c0 and every
+// output are bf16; the c carry, the gate math and both LayerNorms'
+// statistics stay f32.  h enters the product rounded to bf16 (:106), which
+// is the value y stores, so the shared h tile simply holds the rounded h:
+// nothing else reads the f32 h.  y, c_seq, h_n and c_n are the f32 values
+// rounded once at the store.
+//
 // What bounds it on an H100: the h @ Wh product, 2*S*B*H*4H f32 operations,
 // runs on the FP32 FMA pipes (67 TFLOP/s for the whole card, no tensor
 // cores in this version), while HBM traffic is only the gxp/y streams.  At
 // S=33, B=256, H=512 that is 17.7 GFLOP against ~93 MB: operations bound.
+// With bf16 streams the kernel does the same f32 FMAs and moves half the
+// bytes, the per-step L2 stream of Wh included; the least time the card
+// needs for that bf16 work is at its bf16 tensor-core rate (989 TFLOP/s),
+// which this version does not use.
 //
 // Design.  Batch rows are independent and only time is sequential, so one
 // CTA owns kRows rows and runs the whole S-step loop; the loop takes the
@@ -46,22 +58,22 @@ __host__ __device__ constexpr size_t smem_floats(int H) {
 }
 
 // kStash: also write c_seq; the serving path's instantiation has no store
-// and no branch for it.
-template <bool kStash>
+// and no branch for it.  T: the stream type, float or bf16.
+template <typename T, bool kStash>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_layer_fwd_kernel(const float* __restrict__ gxp,
-                      const float* __restrict__ wh,
-                      const float* __restrict__ glnx,
-                      const float* __restrict__ blnx,
-                      const float* __restrict__ gln,
-                      const float* __restrict__ bln,
-                      const float* __restrict__ bias,
-                      const float* __restrict__ h0,
-                      const float* __restrict__ c0,
-                      float* __restrict__ y,
-                      float* __restrict__ c_seq,      // kStash only
-                      float* __restrict__ hn,
-                      float* __restrict__ cn,
+lstm_layer_fwd_kernel(const T* __restrict__ gxp,
+                      const T* __restrict__ wh,
+                      const T* __restrict__ glnx,
+                      const T* __restrict__ blnx,
+                      const T* __restrict__ gln,
+                      const T* __restrict__ bln,
+                      const T* __restrict__ bias,
+                      const T* __restrict__ h0,
+                      const T* __restrict__ c0,
+                      T* __restrict__ y,
+                      T* __restrict__ c_seq,          // kStash only
+                      T* __restrict__ hn,
+                      T* __restrict__ cn,
                       int S, int B, int H, int norm) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -82,8 +94,8 @@ lstm_layer_fwd_kernel(const float* __restrict__ gxp,
     const int b = i / H, j = i - b * H, row = row0 + b;
     float hv = 0.f, cv = 0.f;
     if (row < B) {
-      hv = h0[(size_t)row * H + j];
-      cv = c0[(size_t)row * H + j];
+      hv = to_f(h0[(size_t)row * H + j]);
+      cv = to_f(c0[(size_t)row * H + j]);
     }
     hT_s[j * kRows + b] = hv;
     c_s[i] = cv;
@@ -99,13 +111,12 @@ lstm_layer_fwd_kernel(const float* __restrict__ gxp,
     //    one-pass LayerNorm statistics of both projections.
     if (warp < kRows) {
       const int b = warp, row = row0 + b;
-      const float* src = gxp + ((size_t)t * B + row) * G;
+      const T* src = gxp + ((size_t)t * B + row) * G;
       float sh = 0.f, sh2 = 0.f, sx = 0.f, sx2 = 0.f;
       for (int col = 4 * lane; col < G; col += 4 * 32) {
         const float4 g = *reinterpret_cast<const float4*>(gh_s + b * G + col);
-        const float4 x = row < B
-            ? __ldg(reinterpret_cast<const float4*>(src + col))
-            : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 x = row < B ? load4(src + col)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
         *reinterpret_cast<float4*>(gx_s + b * G + col) = x;
         accum_quad(g, sh, sh2);
         accum_quad(x, sx, sx2);
@@ -133,10 +144,10 @@ lstm_layer_fwd_kernel(const float* __restrict__ gxp,
         float xg = gx_s[b * G + col];
         float hg = gh_s[b * G + col];
         if (norm) {
-          xg = (xg - mx) * rx * __ldg(glnx + col) + __ldg(blnx + col);
-          hg = (hg - mh) * rh * __ldg(gln + col) + __ldg(bln + col);
+          xg = (xg - mx) * rx * ldf(glnx + col) + ldf(blnx + col);
+          hg = (hg - mh) * rh * ldf(gln + col) + ldf(bln + col);
         }
-        pre[q] = (xg + __ldg(bias + col)) + hg;
+        pre[q] = (xg + ldf(bias + col)) + hg;
       }
       const float ig = sigmoid_f(pre[0]);
       const float fg = sigmoid_f(pre[1]);
@@ -145,19 +156,37 @@ lstm_layer_fwd_kernel(const float* __restrict__ gxp,
       const float c = fg * c_s[i] + ig * ug;
       const float h = og * tanhf(c);
       c_s[i] = c;
-      hT_s[j * kRows + b] = h;
+      hT_s[j * kRows + b] = round_to<T>(h);
       if (row < B) {
         const size_t o = ((size_t)t * B + row) * H + j;
-        y[o] = h;
-        if (kStash) c_seq[o] = c;
+        put(y + o, h);
+        if (kStash) put(c_seq + o, c);
         if (t == S - 1) {
-          hn[(size_t)row * H + j] = h;
-          cn[(size_t)row * H + j] = c;
+          put(hn + (size_t)row * H + j, h);
+          put(cn + (size_t)row * H + j, c);
         }
       }
     }
     __syncthreads();
   }
+}
+
+template <typename T>
+int launch_fwd(const T* gxp, const T* wh, const T* glnx, const T* blnx,
+               const T* gln, const T* bln, const T* bias, const T* h0,
+               const T* c0, T* y, T* c_seq, T* hn, T* cn, int S, int B,
+               int H, int norm, void* stream) {
+  const size_t smem = smem_floats(H) * sizeof(float);
+  auto kernel = c_seq != nullptr ? lstm_layer_fwd_kernel<T, true>
+                                 : lstm_layer_fwd_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, y, c_seq, hn, cn, S, B, H,
+      norm);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -172,25 +201,25 @@ long long lstm_layer_smem_bytes(int H) {
 int lstm_layer_rows_per_cta(void) { return kRows; }
 
 // gxp (S, B, 4H), wh (H, 4H), the five (4H,) vectors, h0/c0 (B, H) in;
-// y (S, B, H), c_seq (S, B, H) or nullptr, hn/cn (B, H) out.  All f32,
-// contiguous, gxp and wh 16-byte aligned.  Returns the launch status
-// (cudaSuccess == 0).
+// y (S, B, H), c_seq (S, B, H) or nullptr, hn/cn (B, H) out.  All of one
+// type (f32 or bf16), contiguous, gxp and wh 16-byte aligned.  Returns the
+// launch status (cudaSuccess == 0).
 int lstm_layer_fwd_f32(const float* gxp, const float* wh, const float* glnx,
                        const float* blnx, const float* gln, const float* bln,
                        const float* bias, const float* h0, const float* c0,
                        float* y, float* c_seq, float* hn, float* cn, int S,
                        int B, int H, int norm, void* stream) {
-  const size_t smem = smem_floats(H) * sizeof(float);
-  auto kernel = c_seq != nullptr ? lstm_layer_fwd_kernel<true>
-                                 : lstm_layer_fwd_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, y, c_seq, hn, cn, S, B, H,
-      norm);
-  return (int)cudaGetLastError();
+  return launch_fwd(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, y, c_seq,
+                    hn, cn, S, B, H, norm, stream);
+}
+
+int lstm_layer_fwd_bf16(const bf16* gxp, const bf16* wh, const bf16* glnx,
+                        const bf16* blnx, const bf16* gln, const bf16* bln,
+                        const bf16* bias, const bf16* h0, const bf16* c0,
+                        bf16* y, bf16* c_seq, bf16* hn, bf16* cn, int S,
+                        int B, int H, int norm, void* stream) {
+  return launch_fwd(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, y, c_seq,
+                    hn, cn, S, B, H, norm, stream);
 }
 
 }  // extern "C"

@@ -47,6 +47,17 @@
 // fixed order: no float atomics, so repeated runs are bitwise equal.  Rows
 // past B load zeros for every input (h, c, gxp, dy and the carries), so
 // their dgate is exactly zero and they add nothing to the sums.
+//
+// bf16 streams (T = __nv_bfloat16), as the TPU kernels take them: every
+// stream, Wh and the vectors are bf16 and are widened on load; the math, the
+// dh/dc carries and V2's parameter sums are f32.  V2 recomputes gh_pre from
+// the bf16 h_{t-1} (lstm_cell.py:431-434) and c_t from the bf16 c_{t-1}
+// stash, as the TPU kernel does; d(gxp) and d(gh_pre) are stored as bf16,
+// and the dh carry is bf16(d(gh_pre)) @ Wh^T summed in f32 (:527-529), so
+// the dg_pre tile in shared memory holds the rounded values.  V1's inputs
+// are mixed, as at lstm_cell.py:658-706: gx, c_{t-1}, c_t, dy and Wh are
+// bf16 but gh_pre is f32; dgate, d(gh_pre), dh0 and dc0 come out bf16.
+// With bf16 the operations are the same f32 FMAs and the bytes halve.
 
 #include "lstm_common.cuh"
 
@@ -80,37 +91,38 @@ __device__ __forceinline__ void store_rows8(float* p, const float (&v)[kRows]) {
 // Cell backward of one (row, unit) from the gate pre-activations and
 // c_{t-1}: writes the four dgate entries into dT_s (k-major) and, with
 // dgate_out, to global memory; returns the new dc carry.  c_t is recomputed
-// as the forward computed it (V2), or, with c_stash non-null, read from the
-// stash (V1, as the TPU kernel reads it).
+// as the forward computed it (V2), or, with kStash, the stashed c_stash
+// (V1, as the TPU kernel reads it).
+template <bool kStash, typename T>
 __device__ __forceinline__ float cell_backward(const float (&pre)[4], float cp,
-                                               const float* c_stash, float dh,
+                                               float c_stash, float dh,
                                                float dc_carry, float* dT_s,
                                                int H, int j, int b,
-                                               float* dgate_out) {
+                                               T* dgate_out) {
   const float si = sigmoid_f(pre[0]);
   const float sf = sigmoid_f(pre[1]);
   const float so = sigmoid_f(pre[2]);
   const float su = tanhf(pre[3]);
-  const float tc = tanhf(c_stash != nullptr ? *c_stash : sf * cp + si * su);
+  const float tc = tanhf(kStash ? c_stash : sf * cp + si * su);
   const float dc = dc_carry + dh * so * (1.f - tc * tc);
   const float d[4] = {(dc * su) * si * (1.f - si), (dc * cp) * sf * (1.f - sf),
                       (dh * tc) * so * (1.f - so), (dc * si) * (1.f - su * su)};
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     dT_s[(q * H + j) * kRows + b] = d[q];
-    if (dgate_out != nullptr) dgate_out[q * H] = d[q];
+    if (dgate_out != nullptr) put(dgate_out + q * H, d[q]);
   }
   return dc * sf;
 }
 
 // dh carry = dg_pre @ Wh^T (four K slices into scratch, then summed in a
 // fixed order); at t == 0 the carries go out as dh0/dc0.
+template <typename T>
 __device__ __forceinline__ void carry_dh(const float* dT_s,
-                                         const float* __restrict__ whT,
+                                         const T* __restrict__ whT,
                                          float* scratch, float* dh_s,
-                                         const float* dc_s, float* dh0,
-                                         float* dc0, int t, int B, int H,
-                                         int row0) {
+                                         const float* dc_s, T* dh0, T* dc0,
+                                         int t, int B, int H, int row0) {
   matmul_rows<4>(dT_s, whT, 4 * H, H, scratch);
   __syncthreads();
   const int n = kRows * H;
@@ -120,45 +132,47 @@ __device__ __forceinline__ void carry_dh(const float* dT_s,
     dh_s[i] = d;
     const int b = i / H, j = i - b * H, row = row0 + b;
     if (t == 0 && row < B) {
-      dh0[(size_t)row * H + j] = d;
-      dc0[(size_t)row * H + j] = dc_s[i];
+      put(dh0 + (size_t)row * H + j, d);
+      put(dc0 + (size_t)row * H + j, dc_s[i]);
     }
   }
   __syncthreads();
 }
 
-__device__ __forceinline__ void init_carries(const float* __restrict__ dhn,
-                                             const float* __restrict__ dcn,
+template <typename T>
+__device__ __forceinline__ void init_carries(const T* __restrict__ dhn,
+                                             const T* __restrict__ dcn,
                                              float* dh_s, float* dc_s, int B,
                                              int H, int row0) {
   for (int i = threadIdx.x; i < kRows * H; i += kThreads) {
     const int b = i / H, j = i - b * H, row = row0 + b;
-    dh_s[i] = row < B ? dhn[(size_t)row * H + j] : 0.f;
-    dc_s[i] = row < B ? dcn[(size_t)row * H + j] : 0.f;
+    dh_s[i] = row < B ? to_f(dhn[(size_t)row * H + j]) : 0.f;
+    dc_s[i] = row < B ? to_f(dcn[(size_t)row * H + j]) : 0.f;
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_layer_bwd_v2_kernel(const float* __restrict__ gxp,
-                         const float* __restrict__ y,
-                         const float* __restrict__ c_seq,
-                         const float* __restrict__ dy,
-                         const float* __restrict__ wh,
-                         const float* __restrict__ whT,
-                         const float* __restrict__ glnx,
-                         const float* __restrict__ blnx,
-                         const float* __restrict__ gln,
-                         const float* __restrict__ bln,
-                         const float* __restrict__ bias,
-                         const float* __restrict__ h0,
-                         const float* __restrict__ c0,
-                         const float* __restrict__ dhn,
-                         const float* __restrict__ dcn,
-                         float* __restrict__ dgxp,
-                         float* __restrict__ dgpre,
-                         float* __restrict__ part,     // (CTAs, 3, 4H)
-                         float* __restrict__ dh0,
-                         float* __restrict__ dc0,
+lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
+                         const T* __restrict__ y,
+                         const T* __restrict__ c_seq,
+                         const T* __restrict__ dy,
+                         const T* __restrict__ wh,
+                         const T* __restrict__ whT,
+                         const T* __restrict__ glnx,
+                         const T* __restrict__ blnx,
+                         const T* __restrict__ gln,
+                         const T* __restrict__ bln,
+                         const T* __restrict__ bias,
+                         const T* __restrict__ h0,
+                         const T* __restrict__ c0,
+                         const T* __restrict__ dhn,
+                         const T* __restrict__ dcn,
+                         T* __restrict__ dgxp,
+                         T* __restrict__ dgpre,
+                         float* __restrict__ part,     // (CTAs, 3, 4H), f32
+                         T* __restrict__ dh0,
+                         T* __restrict__ dc0,
                          int S, int B, int H, int norm) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -182,12 +196,12 @@ lstm_layer_bwd_v2_kernel(const float* __restrict__ gxp,
   for (int i = tid; i < 3 * G; i += kThreads) sum_s[i] = 0.f;
 
   for (int t = S - 1; t >= 0; --t) {
-    const float* x_t = gxp + (size_t)t * B * G;        // rows of step t
+    const T* x_t = gxp + (size_t)t * B * G;            // rows of step t
     // A. h_{t-1} into hT_s, k-major.
-    const float* hp = t > 0 ? y + (size_t)(t - 1) * B * H : h0;
+    const T* hp = t > 0 ? y + (size_t)(t - 1) * B * H : h0;
     for (int i = tid; i < kRows * H; i += kThreads) {
       const int b = i / H, j = i - b * H, row = row0 + b;
-      hT_s[j * kRows + b] = row < B ? hp[(size_t)row * H + j] : 0.f;
+      hT_s[j * kRows + b] = row < B ? to_f(hp[(size_t)row * H + j]) : 0.f;
     }
     __syncthreads();
 
@@ -198,13 +212,12 @@ lstm_layer_bwd_v2_kernel(const float* __restrict__ gxp,
     // C. One warp per row: LayerNorm statistics of gh_pre and the raw gxp.
     if (warp < kRows) {
       const int b = warp, row = row0 + b;
-      const float* src = x_t + (size_t)row * G;
+      const T* src = x_t + (size_t)row * G;
       float sh = 0.f, sh2 = 0.f, sx = 0.f, sx2 = 0.f;
       for (int col = 4 * lane; col < G; col += 4 * 32) {
         const float4 g = *reinterpret_cast<const float4*>(gh_s + b * G + col);
-        const float4 x = row < B
-            ? __ldg(reinterpret_cast<const float4*>(src + col))
-            : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 x = row < B ? load4(src + col)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
         accum_quad(g, sh, sh2);
         accum_quad(x, sx, sx2);
       }
@@ -221,7 +234,7 @@ lstm_layer_bwd_v2_kernel(const float* __restrict__ gxp,
 
     // D. Recompute the gates and run the cell backward, one (row, unit)
     //    per item; dgate into dT_s.
-    const float* cp_t = t > 0 ? c_seq + (size_t)(t - 1) * B * H : c0;
+    const T* cp_t = t > 0 ? c_seq + (size_t)(t - 1) * B * H : c0;
     for (int i = tid; i < kRows * H; i += kThreads) {
       const int b = i / H, j = i - b * H, row = row0 + b;
       const bool valid = row < B;
@@ -230,19 +243,19 @@ lstm_layer_bwd_v2_kernel(const float* __restrict__ gxp,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int col = q * H + j;
-        float xg = valid ? __ldg(x_t + (size_t)row * G + col) : 0.f;
+        float xg = valid ? ldf(x_t + (size_t)row * G + col) : 0.f;
         float hg = gh_s[b * G + col];
         if (norm) {
-          xg = (xg - st[2]) * st[3] * __ldg(glnx + col) + __ldg(blnx + col);
-          hg = (hg - st[0]) * st[1] * __ldg(gln + col) + __ldg(bln + col);
+          xg = (xg - st[2]) * st[3] * ldf(glnx + col) + ldf(blnx + col);
+          hg = (hg - st[0]) * st[1] * ldf(gln + col) + ldf(bln + col);
         }
-        pre[q] = (xg + __ldg(bias + col)) + hg;
+        pre[q] = (xg + ldf(bias + col)) + hg;
       }
-      const float cp = valid ? cp_t[(size_t)row * H + j] : 0.f;
+      const float cp = valid ? to_f(cp_t[(size_t)row * H + j]) : 0.f;
       const float dh =
-          dh_s[i] + (valid ? dy[((size_t)t * B + row) * H + j] : 0.f);
-      dc_s[i] = cell_backward(pre, cp, nullptr, dh, dc_s[i], dT_s, H, j, b,
-                              nullptr);
+          dh_s[i] + (valid ? to_f(dy[((size_t)t * B + row) * H + j]) : 0.f);
+      dc_s[i] = cell_backward<false>(pre, cp, 0.f, dh, dc_s[i], dT_s, H, j, b,
+                                     static_cast<T*>(nullptr));
     }
     __syncthreads();
 
@@ -255,9 +268,9 @@ lstm_layer_bwd_v2_kernel(const float* __restrict__ gxp,
       for (int col = lane; col < G; col += 32) {
         const float dg = dT_s[col * kRows + b];
         const float xh = (gh_s[b * G + col] - st[0]) * st[1];
-        const float xv = row < B ? __ldg(x_t + (size_t)row * G + col) : 0.f;
+        const float xv = row < B ? ldf(x_t + (size_t)row * G + col) : 0.f;
         const float xx = (xv - st[2]) * st[3];
-        const float a = dg * __ldg(gln + col), ax = dg * __ldg(glnx + col);
+        const float a = dg * ldf(gln + col), ax = dg * ldf(glnx + col);
         s1 += a;
         s2 += a * xh;
         s1x += ax;
@@ -281,8 +294,8 @@ lstm_layer_bwd_v2_kernel(const float* __restrict__ gxp,
     for (int col = tid; col < G; col += kThreads) {
       float dg[kRows];
       load_rows8(dT_s + col * kRows, dg);
-      const float g_h = norm ? __ldg(gln + col) : 1.f;
-      const float g_x = norm ? __ldg(glnx + col) : 1.f;
+      const float g_h = norm ? ldf(gln + col) : 1.f;
+      const float g_x = norm ? ldf(glnx + col) : 1.f;
       float a_h = 0.f, a_x = 0.f, a_s = 0.f;
 #pragma unroll
       for (int b = 0; b < kRows; ++b) {
@@ -294,17 +307,17 @@ lstm_layer_bwd_v2_kernel(const float* __restrict__ gxp,
         a_s += dg[b];
         if (norm) {
           const float xh = (gh_s[b * G + col] - st[0]) * st[1];
-          const float xx = ((valid ? __ldg(gxp + o) : 0.f) - st[2]) * st[3];
+          const float xx = ((valid ? ldf(gxp + o) : 0.f) - st[2]) * st[3];
           gp = st[1] * (dg[b] * g_h - st[4] - xh * st[5]);
           gxo = st[3] * (dg[b] * g_x - st[6] - xx * st[7]);
           a_h += dg[b] * xh;
           a_x += dg[b] * xx;
         }
         if (valid) {
-          dgpre[o] = gp;
-          dgxp[o] = gxo;
+          put(dgpre + o, gp);
+          put(dgxp + o, gxo);
         }
-        dg[b] = gp;
+        dg[b] = round_to<T>(gp);      // the dh product reads the stored value
       }
       store_rows8(dT_s + col * kRows, dg);
       sum_s[col] += a_h;
@@ -321,21 +334,22 @@ lstm_layer_bwd_v2_kernel(const float* __restrict__ gxp,
   for (int i = tid; i < 3 * G; i += kThreads) out[i] = sum_s[i];
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_layer_bwd_v1_kernel(const float* __restrict__ gx,
-                         const float* __restrict__ ghp,
-                         const float* __restrict__ c_prev,
-                         const float* __restrict__ c_seq,
-                         const float* __restrict__ dy,
-                         const float* __restrict__ whT,
-                         const float* __restrict__ gln,
-                         const float* __restrict__ bln,
-                         const float* __restrict__ dhn,
-                         const float* __restrict__ dcn,
-                         float* __restrict__ dgate,
-                         float* __restrict__ dgpre,
-                         float* __restrict__ dh0,
-                         float* __restrict__ dc0,
+lstm_layer_bwd_v1_kernel(const T* __restrict__ gx,
+                         const float* __restrict__ ghp,  // f32 for any T
+                         const T* __restrict__ c_prev,
+                         const T* __restrict__ c_seq,
+                         const T* __restrict__ dy,
+                         const T* __restrict__ whT,
+                         const T* __restrict__ gln,
+                         const T* __restrict__ bln,
+                         const T* __restrict__ dhn,
+                         const T* __restrict__ dcn,
+                         T* __restrict__ dgate,
+                         T* __restrict__ dgpre,
+                         T* __restrict__ dh0,
+                         T* __restrict__ dc0,
                          int S, int B, int H, int norm) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -387,15 +401,14 @@ lstm_layer_bwd_v1_kernel(const float* __restrict__ gx,
       for (int q = 0; q < 4; ++q) {
         const int col = q * H + j;
         float hg = gh_s[b * G + col];
-        if (norm) hg = (hg - mh) * rh * __ldg(gln + col) + __ldg(bln + col);
-        pre[q] = (valid ? __ldg(gx + og + q * H) : 0.f) + hg;
+        if (norm) hg = (hg - mh) * rh * ldf(gln + col) + ldf(bln + col);
+        pre[q] = (valid ? ldf(gx + og + q * H) : 0.f) + hg;
       }
-      const float zero = 0.f;
-      const float cp = valid ? c_prev[oh] : 0.f;
-      const float dh = dh_s[i] + (valid ? dy[oh] : 0.f);
-      dc_s[i] = cell_backward(pre, cp, valid ? c_seq + oh : &zero, dh,
-                              dc_s[i], dT_s, H, j, b,
-                              valid ? dgate + og : nullptr);
+      const float cp = valid ? to_f(c_prev[oh]) : 0.f;
+      const float dh = dh_s[i] + (valid ? to_f(dy[oh]) : 0.f);
+      dc_s[i] = cell_backward<true>(pre, cp, valid ? to_f(c_seq[oh]) : 0.f,
+                                    dh, dc_s[i], dT_s, H, j, b,
+                                    valid ? dgate + og : nullptr);
     }
     __syncthreads();
 
@@ -405,7 +418,7 @@ lstm_layer_bwd_v1_kernel(const float* __restrict__ gx,
       const float mh = st_s[b * 4 + 0], rh = st_s[b * 4 + 1];
       float s1 = 0.f, s2 = 0.f;
       for (int col = lane; col < G; col += 32) {
-        const float a = dT_s[col * kRows + b] * __ldg(gln + col);
+        const float a = dT_s[col * kRows + b] * ldf(gln + col);
         s1 += a;
         s2 += a * ((gh_s[b * G + col] - mh) * rh);
       }
@@ -423,7 +436,7 @@ lstm_layer_bwd_v1_kernel(const float* __restrict__ gx,
       float dg[kRows];
       load_rows8(dT_s + col * kRows, dg);
       if (norm) {
-        const float g_h = __ldg(gln + col);
+        const float g_h = ldf(gln + col);
 #pragma unroll
         for (int b = 0; b < kRows; ++b) {
           const float* st = st_s + b * 4;
@@ -432,8 +445,11 @@ lstm_layer_bwd_v1_kernel(const float* __restrict__ gx,
         }
       }
 #pragma unroll
-      for (int b = 0; b < kRows; ++b)
-        if (row0 + b < B) dgpre[((size_t)t * B + row0 + b) * G + col] = dg[b];
+      for (int b = 0; b < kRows; ++b) {
+        if (row0 + b < B) put(dgpre + ((size_t)t * B + row0 + b) * G + col,
+                             dg[b]);
+        dg[b] = round_to<T>(dg[b]);   // the dh product reads the stored value
+      }
       store_rows8(dT_s + col * kRows, dg);
     }
     __syncthreads();
@@ -449,11 +465,44 @@ int set_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <typename T>
+int launch_v2(const T* gxp, const T* y, const T* c_seq, const T* dy,
+              const T* wh, const T* whT, const T* glnx, const T* blnx,
+              const T* gln, const T* bln, const T* bias, const T* h0,
+              const T* c0, const T* dhn, const T* dcn, T* dgxp, T* dgpre,
+              float* part, T* dh0, T* dc0, int S, int B, int H, int norm,
+              void* stream) {
+  const size_t smem = v2_smem_floats(H) * sizeof(float);
+  const int err = set_smem(lstm_layer_bwd_v2_kernel<T>, smem);
+  if (err != 0) return err;
+  const dim3 grid((B + kRows - 1) / kRows);
+  lstm_layer_bwd_v2_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      gxp, y, c_seq, dy, wh, whT, glnx, blnx, gln, bln, bias, h0, c0, dhn,
+      dcn, dgxp, dgpre, part, dh0, dc0, S, B, H, norm);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_v1(const T* gx, const float* ghp, const T* c_prev, const T* c_seq,
+              const T* dy, const T* whT, const T* gln, const T* bln,
+              const T* dhn, const T* dcn, T* dgate, T* dgpre, T* dh0, T* dc0,
+              int S, int B, int H, int norm, void* stream) {
+  const size_t smem = v1_smem_floats(H) * sizeof(float);
+  const int err = set_smem(lstm_layer_bwd_v1_kernel<T>, smem);
+  if (err != 0) return err;
+  const dim3 grid((B + kRows - 1) / kRows);
+  lstm_layer_bwd_v1_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      gx, ghp, c_prev, c_seq, dy, whT, gln, bln, dhn, dcn, dgate, dgpre, dh0,
+      dc0, S, B, H, norm);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one CTA of each variant needs at hidden size H.
+// Dynamic shared memory one CTA of each variant needs at hidden size H (the
+// same for f32 and bf16 streams: the tiles are f32).
 long long lstm_layer_bwd_v2_smem_bytes(int H) {
   return (long long)(v2_smem_floats(H) * sizeof(float));
 }
@@ -464,9 +513,9 @@ long long lstm_layer_bwd_v1_smem_bytes(int H) {
 
 // V2.  gxp (S, B, 4H), y, c_seq, dy (S, B, H), wh (H, 4H), whT (4H, H) its
 // contiguous transpose, the five (4H,) vectors, h0/c0/dhn/dcn (B, H) in;
-// dgxp, dgpre (S, B, 4H), part (ceil(B/8), 3, 4H), dh0/dc0 (B, H) out.
-// All f32, contiguous, H % 4 == 0, wh/whT 16-byte aligned.  Returns the
-// launch status (cudaSuccess == 0).
+// dgxp, dgpre (S, B, 4H), part (ceil(B/8), 3, 4H) f32, dh0/dc0 (B, H) out.
+// All but part of one type (f32 or bf16), contiguous, H % 4 == 0, wh/whT
+// 16-byte aligned.  Returns the launch status (cudaSuccess == 0).
 int lstm_layer_bwd_v2_f32(const float* gxp, const float* y,
                           const float* c_seq, const float* dy,
                           const float* wh, const float* whT,
@@ -476,33 +525,45 @@ int lstm_layer_bwd_v2_f32(const float* gxp, const float* y,
                           const float* dhn, const float* dcn, float* dgxp,
                           float* dgpre, float* part, float* dh0, float* dc0,
                           int S, int B, int H, int norm, void* stream) {
-  const size_t smem = v2_smem_floats(H) * sizeof(float);
-  const int err = set_smem(lstm_layer_bwd_v2_kernel, smem);
-  if (err != 0) return err;
-  const dim3 grid((B + kRows - 1) / kRows);
-  lstm_layer_bwd_v2_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      gxp, y, c_seq, dy, wh, whT, glnx, blnx, gln, bln, bias, h0, c0, dhn,
-      dcn, dgxp, dgpre, part, dh0, dc0, S, B, H, norm);
-  return (int)cudaGetLastError();
+  return launch_v2(gxp, y, c_seq, dy, wh, whT, glnx, blnx, gln, bln, bias, h0,
+                   c0, dhn, dcn, dgxp, dgpre, part, dh0, dc0, S, B, H, norm,
+                   stream);
+}
+
+int lstm_layer_bwd_v2_bf16(const bf16* gxp, const bf16* y, const bf16* c_seq,
+                           const bf16* dy, const bf16* wh, const bf16* whT,
+                           const bf16* glnx, const bf16* blnx,
+                           const bf16* gln, const bf16* bln, const bf16* bias,
+                           const bf16* h0, const bf16* c0, const bf16* dhn,
+                           const bf16* dcn, bf16* dgxp, bf16* dgpre,
+                           float* part, bf16* dh0, bf16* dc0, int S, int B,
+                           int H, int norm, void* stream) {
+  return launch_v2(gxp, y, c_seq, dy, wh, whT, glnx, blnx, gln, bln, bias, h0,
+                   c0, dhn, dcn, dgxp, dgpre, part, dh0, dc0, S, B, H, norm,
+                   stream);
 }
 
 // V1.  gx, gh_pre (S, B, 4H), c_prev, c_seq, dy (S, B, H), whT (4H, H),
 // gln/bln (4H,), dhn/dcn (B, H) in; dgate, dgpre (S, B, 4H), dh0/dc0 (B, H)
-// out.  Same conventions as V2.
+// out.  gh_pre is f32 for either type; the rest as V2.
 int lstm_layer_bwd_v1_f32(const float* gx, const float* ghp,
                           const float* c_prev, const float* c_seq,
                           const float* dy, const float* whT, const float* gln,
                           const float* bln, const float* dhn, const float* dcn,
                           float* dgate, float* dgpre, float* dh0, float* dc0,
                           int S, int B, int H, int norm, void* stream) {
-  const size_t smem = v1_smem_floats(H) * sizeof(float);
-  const int err = set_smem(lstm_layer_bwd_v1_kernel, smem);
-  if (err != 0) return err;
-  const dim3 grid((B + kRows - 1) / kRows);
-  lstm_layer_bwd_v1_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      gx, ghp, c_prev, c_seq, dy, whT, gln, bln, dhn, dcn, dgate, dgpre, dh0,
-      dc0, S, B, H, norm);
-  return (int)cudaGetLastError();
+  return launch_v1(gx, ghp, c_prev, c_seq, dy, whT, gln, bln, dhn, dcn, dgate,
+                   dgpre, dh0, dc0, S, B, H, norm, stream);
+}
+
+int lstm_layer_bwd_v1_bf16(const bf16* gx, const float* ghp,
+                           const bf16* c_prev, const bf16* c_seq,
+                           const bf16* dy, const bf16* whT, const bf16* gln,
+                           const bf16* bln, const bf16* dhn, const bf16* dcn,
+                           bf16* dgate, bf16* dgpre, bf16* dh0, bf16* dc0,
+                           int S, int B, int H, int norm, void* stream) {
+  return launch_v1(gx, ghp, c_prev, c_seq, dy, whT, gln, bln, dhn, dcn, dgate,
+                   dgpre, dh0, dc0, S, B, H, norm, stream);
 }
 
 }  // extern "C"

@@ -8,7 +8,10 @@ Each wrapper runs its plain version when every tensor lies on the CPU,
 launches its kernel for CUDA tensors, and raises on what the kernel cannot
 take.  `wrapper.launches` counts the kernel's launches (the forward layer
 kernel counts on `lstm_layer_fused`, with or without its stash; both
-directions of the linear recurrence count on `linear_scan`).
+directions of the linear recurrence count on `linear_scan`).  The three
+LSTM kernels also take bf16 streams: their bf16 launches count apart, in
+`wrapper.launches_bf16`, and `launch_counts` reports them as
+"<name>_bf16".
 """
 
 from .linear_scan import (
@@ -52,12 +55,17 @@ KERNEL_WRAPPERS = (lstm_layer_fused, lstm_layer_bwd_v2, lstm_layer_bwd_v1,
                    vtrace_losses, vtrace_returns_adv, gae, lambda_returns,
                    td_lambda_loss, td_lambda_err, linear_scan,
                    upgo_advantages, upgo_loss)
+BF16_WRAPPERS = (lstm_layer_fused, lstm_layer_bwd_v2, lstm_layer_bwd_v1)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    for fn in BF16_WRAPPERS:
+        fn.launches_bf16 = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    return {**{fn.__name__: fn.launches for fn in KERNEL_WRAPPERS},
+            **{fn.__name__ + "_bf16": fn.launches_bf16
+               for fn in BF16_WRAPPERS}}

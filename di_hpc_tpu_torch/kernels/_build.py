@@ -35,11 +35,14 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every exported function: name -> (restype, argtypes).
 _SIGNATURES = {
     "lstm_layer_fwd_f32": (_i, [_p] * 13 + [_i] * 4 + [_p]),
+    "lstm_layer_fwd_bf16": (_i, [_p] * 13 + [_i] * 4 + [_p]),
     "lstm_layer_smem_bytes": (ctypes.c_longlong, [_i]),
     "lstm_layer_rows_per_cta": (_i, []),
     "lstm_layer_bwd_v2_f32": (_i, [_p] * 20 + [_i] * 4 + [_p]),
+    "lstm_layer_bwd_v2_bf16": (_i, [_p] * 20 + [_i] * 4 + [_p]),
     "lstm_layer_bwd_v2_smem_bytes": (ctypes.c_longlong, [_i]),
     "lstm_layer_bwd_v1_f32": (_i, [_p] * 14 + [_i] * 4 + [_p]),
+    "lstm_layer_bwd_v1_bf16": (_i, [_p] * 14 + [_i] * 4 + [_p]),
     "lstm_layer_bwd_v1_smem_bytes": (ctypes.c_longlong, [_i]),
     "vtrace_losses_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_p]),
     "vtrace_returns_adv_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_p]),
@@ -155,18 +158,22 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def check_kernel_inputs(name: str, tensors: dict, aligned=()) -> None:
-    """The CUDA kernels take contiguous float32 tensors on one CUDA device;
-    the names in `aligned` are also read as float4 (16-byte alignment)."""
+def check_kernel_inputs(name: str, tensors: dict, aligned=(),
+                        dtypes: dict = None) -> None:
+    """The CUDA kernels take contiguous tensors on one CUDA device, each of
+    the dtype `dtypes` names for it (float32 where it names none); the names
+    in `aligned` are also read 16 bytes at a time (16-byte alignment)."""
     first = next(iter(tensors.values()))
+    dtypes = dtypes or {}
     for arg, t in tensors.items():
         if t.device.type != "cuda" or t.device != first.device:
             raise ValueError(f"{name}: all inputs must lie on one CUDA device "
                              f"(or all on the CPU); {arg} is on {t.device}, "
                              f"{next(iter(tensors))} on {first.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32 only; "
-                            f"{arg} is {t.dtype}")
+        want = dtypes.get(arg, torch.float32)
+        if t.dtype != want:
+            raise TypeError(f"{name}: the CUDA kernel takes {arg} as {want}; "
+                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if arg in aligned and t.data_ptr() % 16:

@@ -22,8 +22,20 @@ the same functions:
 The TPU kernels' dispatch gates (VMEM budgets, H % 128, S >= 8) are facts
 about the TPU and are not carried over: the CUDA kernels take any S >= 1 --
 S = 1 is the serving step -- and any H whose shared-memory plan fits one
-CTA (the backward kernels also need H % 4 == 0).  The forward runs
-float32 streams only; bf16 streams are the next slice (ROADMAP.md).
+CTA (the backward kernels also need H % 4 == 0).
+
+Streams are float32 or bfloat16, as the TPU kernels take them: with bf16,
+gxp, Wh, the (4H,) vectors, the state and every stream are bf16 while the
+carries, the gate math, the LayerNorm statistics and V2's parameter sums
+are float32 (V1's gh_pre stream too).  The plain versions take the same
+types with the same rounding points: h (and V2's recomputed h_{t-1}, and
+the dh carry's dg_pre) enter their products rounded to the stream type and
+widened, `h.to(dt).float() @ wh.float()` -- exact products, float32 sums,
+the kernel's product (a bf16 `torch.matmul` would round its output) -- and
+every stored output is the float32 value rounded once.  For float32 every
+cast is the identity.  Each wrapper dispatches on gxp's dtype to the
+`_f32` or `_bf16` entry point and counts the launch in `launches` or
+`launches_bf16`.
 """
 
 from __future__ import annotations
@@ -43,6 +55,9 @@ __all__ = [
 # The backward runs V2 from this batch size up, as lstm_cell.py:_bwd_fits_v2
 # routes (its VMEM half is a TPU fact and is not carried over).
 V2_MIN_BATCH = 64
+
+# The stream types the kernels are built for.
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _ln_stats(x: torch.Tensor):
@@ -76,22 +91,29 @@ def _gates(gate, H):
 
 def lstm_layer_stash_plain(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0,
                            norm: bool = True):
-    """The forward kernel's function in plain PyTorch (ordinary autograd).
-    Returns (y (S, B, H), c_seq (S, B, H), h_n (B, H), c_n (B, H))."""
+    """The forward kernel's function in plain PyTorch (ordinary autograd),
+    for float32 or bf16 streams (the module docstring gives the rounding
+    points).  Returns (y (S, B, H), c_seq (S, B, H), h_n (B, H), c_n (B,
+    H)) in gxp's dtype."""
     H = wh.shape[0]
-    h, c = h0, c0
+    dt = gxp.dtype
+    wh = wh.float()
+    glnx, blnx, gln, bln, bias = (v.float()
+                                  for v in (glnx, blnx, gln, bln, bias))
+    h, c = h0.float(), c0.float()
     ys, cs = [], []
     for t in range(gxp.shape[0]):
-        gx = _ln(gxp[t], glnx, blnx) + bias if norm else gxp[t] + bias
-        gh = h @ wh
+        x = gxp[t].float()
+        gx = _ln(x, glnx, blnx) + bias if norm else x + bias
+        gh = h.to(dt).float() @ wh
         if norm:
             gh = _ln(gh, gln, bln)
         si, sf, so, su = _gates(gx + gh, H)
         c = sf * c + si * su
         h = so * torch.tanh(c)
-        ys.append(h)
-        cs.append(c)
-    return torch.stack(ys), torch.stack(cs), h, c
+        ys.append(h.to(dt))
+        cs.append(c.to(dt))
+    return torch.stack(ys), torch.stack(cs), h.to(dt), c.to(dt)
 
 
 def lstm_layer_plain(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0,
@@ -129,12 +151,12 @@ def lstm_layer_fused(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0,
       h0, c0: (B, H) initial state.
 
     CPU tensors run the plain version; CUDA tensors launch the kernels
-    (float32, contiguous) or raise.  When grad is enabled and an input
-    requires it, the call goes through `_LayerFunction` on either device,
-    whose backward is the hand-derived one (the kernels on the card, their
-    plain versions on the CPU); otherwise the forward runs without the
-    stash.  Returns (y (S, B, H), h_n, c_n).
-    """
+    (float32 or bf16, all of one type, contiguous) or raise.  When grad is
+    enabled and an input requires it, the call goes through
+    `_LayerFunction` on either device, whose backward is the hand-derived
+    one (the kernels on the card, their plain versions on the CPU);
+    otherwise the forward runs without the stash.  Returns (y (S, B, H),
+    h_n, c_n)."""
     args = (gxp, wh, glnx, blnx, gln, bln, bias, h0, c0)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _LayerFunction.apply(*args, norm)
@@ -145,6 +167,27 @@ def lstm_layer_fused(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0,
 
 
 lstm_layer_fused.launches = 0
+lstm_layer_fused.launches_bf16 = 0
+
+
+def _stream_dtype(name, gxp) -> torch.dtype:
+    if gxp.dtype not in STREAM_DTYPES:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16 "
+                        f"streams; gxp is {gxp.dtype}")
+    return gxp.dtype
+
+
+def _entry(lib, base, dtype):
+    """The C launch function of `base` for the stream dtype."""
+    return getattr(lib, base + ("_bf16" if dtype == torch.bfloat16
+                                else "_f32"))
+
+
+def _count(wrapper, dtype) -> None:
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def _expect_shapes(name, shapes: dict) -> None:
@@ -192,8 +235,10 @@ def _lstm_layer_cuda(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, norm,
     name = "lstm_layer_fused"
     names = ("gxp", "wh", "glnx", "blnx", "gln", "bln", "bias", "h0", "c0")
     args = (gxp, wh, glnx, blnx, gln, bln, bias, h0, c0)
+    dt = _stream_dtype(name, gxp)
     _build.check_kernel_inputs(name, dict(zip(names, args)),
-                               aligned=("gxp", "wh"))
+                               aligned=("gxp", "wh"),
+                               dtypes=dict.fromkeys(names, dt))
     S, B, H = _layer_dims(name, gxp, wh)
     G = 4 * H
     _expect_shapes(name, {**{n: (t, (G,)) for n, t in
@@ -206,9 +251,9 @@ def _lstm_layer_cuda(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, norm,
     c_seq = torch.empty_like(y) if stash else None
     hn = torch.empty((B, H), dtype=gxp.dtype, device=gxp.device)
     cn = torch.empty_like(hn)
-    _launch(name, lib.lstm_layer_fwd_f32, gxp.device, *args, y,
+    _launch(name, _entry(lib, "lstm_layer_fwd", dt), gxp.device, *args, y,
             c_seq if stash else None, hn, cn, S, B, H, int(bool(norm)))
-    lstm_layer_fused.launches += 1
+    _count(lstm_layer_fused, dt)
     return y, c_seq, hn, cn
 
 
@@ -224,17 +269,22 @@ def lstm_layer_bwd_v2_plain(gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln,
 
     Returns (dgxp (S, B, 4H), dg_pre (S, B, 4H), dgamma_h (4H,),
     dgamma_x (4H,), sum of dgate (4H,), dh0 (B, H), dc0 (B, H)), as
-    lstm_cell.py:_bwd_impl_v2 (whose sums are (1, 4H))."""
+    lstm_cell.py:_bwd_impl_v2 (whose sums are (1, 4H)): the sums float32,
+    the rest in gxp's dtype."""
     S, B, G = gxp.shape
     H = G // 4
+    dt = gxp.dtype
+    wh = wh.float()
+    glnx, blnx, gln, bln, bias = (v.float()
+                                  for v in (glnx, blnx, gln, bln, bias))
     dgxp, dg_pre_seq = torch.empty_like(gxp), torch.empty_like(gxp)
-    dgln, dglnx, dsum = (gxp.new_zeros(G) for _ in range(3))
-    dh, dc = dhn, dcn
+    dgln, dglnx, dsum = (torch.zeros(G, device=gxp.device) for _ in range(3))
+    dh, dc = dhn.float(), dcn.float()
     for t in range(S - 1, -1, -1):
-        h_prev = y[t - 1] if t else h0
-        c_prev = c_seq[t - 1] if t else c0
+        h_prev = (y[t - 1] if t else h0).float()
+        c_prev = (c_seq[t - 1] if t else c0).float()
         gh_pre = h_prev @ wh
-        x = gxp[t]
+        x = gxp[t].float()
         if norm:
             mean, rstd = _ln_stats(gh_pre)
             xhat = (gh_pre - mean) * rstd
@@ -245,7 +295,7 @@ def lstm_layer_bwd_v2_plain(gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln,
             gate = (x + bias) + gh_pre
         si, sf, so, su = _gates(gate, H)
         tc = torch.tanh(sf * c_prev + si * su)
-        dh = dh + dy[t]
+        dh = dh + dy[t].float()
         dc = dc + dh * so * (1.0 - tc * tc)
         dgate = torch.cat([(dc * su) * si * (1.0 - si),
                            (dc * c_prev) * sf * (1.0 - sf),
@@ -260,10 +310,11 @@ def lstm_layer_bwd_v2_plain(gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln,
             dgxp[t] = dgate
             dg_pre = dgate
         dsum += dgate.sum(0)
+        dg_pre = dg_pre.to(dt).float()     # the stored value carries dh
         dg_pre_seq[t] = dg_pre
         dh = dg_pre @ wh.t()
         dc = dc * sf
-    return dgxp, dg_pre_seq, dgln, dglnx, dsum, dh, dc
+    return dgxp, dg_pre_seq, dgln, dglnx, dsum, dh.to(dt), dc.to(dt)
 
 
 def lstm_layer_bwd_v1_plain(gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln,
@@ -273,54 +324,62 @@ def lstm_layer_bwd_v1_plain(gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln,
     gh_pre = h_{t-1} @ Wh, with c_{t-1} and c_t from the stash.
 
     Returns (dgate (S, B, 4H), dg_pre (S, B, 4H), dh0 (B, H), dc0 (B, H)),
-    as lstm_cell.py:_bwd_impl."""
+    as lstm_cell.py:_bwd_impl, in gx's dtype; gh_pre is float32 for either
+    stream type."""
     S, B, G = gx.shape
     H = G // 4
+    dt = gx.dtype
+    wh, gln, bln = wh.float(), gln.float(), bln.float()
     dgate_seq, dg_pre_seq = torch.empty_like(gx), torch.empty_like(gx)
-    dh, dc = dhn, dcn
+    dh, dc = dhn.float(), dcn.float()
     for t in range(S - 1, -1, -1):
-        ghp = gh_pre[t]
+        ghp = gh_pre[t].float()
         if norm:
             mean, rstd = _ln_stats(ghp)
             xhat = (ghp - mean) * rstd
             gh = xhat * gln + bln
         else:
             gh = ghp
-        si, sf, so, su = _gates(gx[t] + gh, H)
-        cp = c_prev[t]
-        tc = torch.tanh(c_seq[t])
-        dh = dh + dy[t]
+        si, sf, so, su = _gates(gx[t].float() + gh, H)
+        cp = c_prev[t].float()
+        tc = torch.tanh(c_seq[t].float())
+        dh = dh + dy[t].float()
         dc = dc + dh * so * (1.0 - tc * tc)
         dgate = torch.cat([(dc * su) * si * (1.0 - si),
                            (dc * cp) * sf * (1.0 - sf),
                            (dh * tc) * so * (1.0 - so),
                            (dc * si) * (1.0 - su * su)], dim=-1)
         dg_pre = _ln_bwd(dgate, gln, xhat, rstd) if norm else dgate
+        dg_pre = dg_pre.to(dt).float()     # the stored value carries dh
         dgate_seq[t] = dgate
         dg_pre_seq[t] = dg_pre
         dh = dg_pre @ wh.t()
         dc = dc * sf
-    return dgate_seq, dg_pre_seq, dh, dc
+    return dgate_seq, dg_pre_seq, dh.to(dt), dc.to(dt)
 
 
 def lstm_layer_bwd_v1_streams(gxp, y, c_seq, wh, glnx, blnx, bias, h0, c0,
                               norm: bool = True):
     """The V1 kernel's precomputed streams, made as lstm_cell.py:_layer_bwd
-    makes them: the x-side gate gx = LN_x(gxp) + bias, gh_pre = h_{t-1} @ Wh
-    (one sequence-wide product) and c_{t-1}, from the forward's inputs and
-    stash.  Plain tensor code on either device."""
-    gx = _ln(gxp, glnx, blnx) + bias if norm else gxp + bias
+    makes them (:658-678): the x-side gate gx = LN_x(gxp) + bias from f32
+    math, in the stream dtype; gh_pre = h_{t-1} @ Wh (one sequence-wide
+    product) in float32 for either stream type; and c_{t-1}, from the
+    forward's inputs and stash.  Plain tensor code on either device."""
+    x, bias = gxp.float(), bias.float()
+    gx = _ln(x, glnx.float(), blnx.float()) + bias if norm else x + bias
     h_prev = torch.cat([h0[None], y[:-1]])
     c_prev = torch.cat([c0[None], c_seq[:-1]])
-    return gx, torch.matmul(h_prev, wh), c_prev
+    return (gx.to(gxp.dtype), torch.matmul(h_prev.float(), wh.float()),
+            c_prev)
 
 
 def lstm_layer_bwd_v2(gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0,
                       c0, dhn, dcn, norm: bool = True):
     """The V2 backward (see lstm_layer_bwd_v2_plain for the function and
     its outputs).  CPU tensors run the plain version; CUDA tensors launch
-    the kernel (float32, contiguous, H % 4 == 0) or raise.  The kernel's
-    per-CTA parameter sums are reduced with torch.sum in a fixed order."""
+    the kernel (float32 or bf16, all of one type, contiguous, H % 4 == 0)
+    or raise.  The kernel's per-CTA float32 parameter sums are reduced with
+    torch.sum in a fixed order."""
     names = ("gxp", "y", "c_seq", "dy", "wh", "glnx", "blnx", "gln", "bln",
              "bias", "h0", "c0", "dhn", "dcn")
     args = (gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn,
@@ -328,8 +387,10 @@ def lstm_layer_bwd_v2(gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0,
     if _build.on_cpu(*args):
         return lstm_layer_bwd_v2_plain(*args, norm=norm)
     name = "lstm_layer_bwd_v2"
+    dt = _stream_dtype(name, gxp)
     _build.check_kernel_inputs(name, dict(zip(names, args)),
-                               aligned=("gxp", "wh"))
+                               aligned=("gxp", "wh"),
+                               dtypes=dict.fromkeys(names, dt))
     S, B, H = _layer_dims(name, gxp, wh)
     G = 4 * H
     _expect_shapes(name, {
@@ -343,32 +404,39 @@ def lstm_layer_bwd_v2(gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0,
 
     rows = lib.lstm_layer_rows_per_cta()
     dgxp, dg_pre = torch.empty_like(gxp), torch.empty_like(gxp)
-    part = gxp.new_empty(((B + rows - 1) // rows, 3, G))
+    part = torch.empty(((B + rows - 1) // rows, 3, G), dtype=torch.float32,
+                       device=gxp.device)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(h0)
-    _launch(name, lib.lstm_layer_bwd_v2_f32, gxp.device, gxp, y, c_seq, dy,
-            wh, wh.t().contiguous(), glnx, blnx, gln, bln, bias, h0, c0, dhn,
-            dcn, dgxp, dg_pre, part, dh0, dc0, S, B, H, int(bool(norm)))
-    lstm_layer_bwd_v2.launches += 1
+    _launch(name, _entry(lib, "lstm_layer_bwd_v2", dt), gxp.device, gxp, y,
+            c_seq, dy, wh, wh.t().contiguous(), glnx, blnx, gln, bln, bias,
+            h0, c0, dhn, dcn, dgxp, dg_pre, part, dh0, dc0, S, B, H,
+            int(bool(norm)))
+    _count(lstm_layer_bwd_v2, dt)
     dgln, dglnx, dsum = part.sum(dim=0)
     return dgxp, dg_pre, dgln, dglnx, dsum, dh0, dc0
 
 
 lstm_layer_bwd_v2.launches = 0
+lstm_layer_bwd_v2.launches_bf16 = 0
 
 
 def lstm_layer_bwd_v1(gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn,
                       norm: bool = True):
     """The V1 backward (see lstm_layer_bwd_v1_plain for the function and
     its outputs).  CPU tensors run the plain version; CUDA tensors launch
-    the kernel (float32, contiguous, H % 4 == 0) or raise."""
+    the kernel (float32 or bf16 streams, all of gx's type but gh_pre, which
+    is float32; contiguous, H % 4 == 0) or raise."""
     names = ("gx", "gh_pre", "c_prev", "c_seq", "dy", "wh", "gln", "bln",
              "dhn", "dcn")
     args = (gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn)
     if _build.on_cpu(*args):
         return lstm_layer_bwd_v1_plain(*args, norm=norm)
     name = "lstm_layer_bwd_v1"
+    dt = _stream_dtype(name, gx)
     _build.check_kernel_inputs(name, dict(zip(names, args)),
-                               aligned=("gh_pre",))
+                               aligned=("gh_pre",),
+                               dtypes={**dict.fromkeys(names, dt),
+                                       "gh_pre": torch.float32})
     S, B, H = _layer_dims(name, gx, wh)
     G = 4 * H
     _expect_shapes(name, {
@@ -383,19 +451,22 @@ def lstm_layer_bwd_v1(gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn,
 
     dgate, dg_pre = torch.empty_like(gx), torch.empty_like(gx)
     dh0, dc0 = torch.empty_like(dhn), torch.empty_like(dhn)
-    _launch(name, lib.lstm_layer_bwd_v1_f32, gx.device, gx, gh_pre, c_prev,
-            c_seq, dy, wh.t().contiguous(), gln, bln, dhn, dcn, dgate, dg_pre,
-            dh0, dc0, S, B, H, int(bool(norm)))
-    lstm_layer_bwd_v1.launches += 1
+    _launch(name, _entry(lib, "lstm_layer_bwd_v1", dt), gx.device, gx, gh_pre,
+            c_prev, c_seq, dy, wh.t().contiguous(), gln, bln, dhn, dcn, dgate,
+            dg_pre, dh0, dc0, S, B, H, int(bool(norm)))
+    _count(lstm_layer_bwd_v1, dt)
     return dgate, dg_pre, dh0, dc0
 
 
 lstm_layer_bwd_v1.launches = 0
+lstm_layer_bwd_v1.launches_bf16 = 0
 
 
 def _layer_backward(saved, dy, dhn, dcn, norm):
     """lstm_cell.py:_layer_bwd: the 9 gradients (dgxp, dwh, dglnx, dblnx,
-    dgln, dbln, dbias, dh0, dc0) from the forward's inputs and stash."""
+    dgln, dbln, dbias, dh0, dc0) from the forward's inputs and stash, each
+    in its input's dtype (the parameter sums are float32 and are cast at
+    the end, as at lstm_cell.py:644-656 and :683-699)."""
     gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, y, c_seq = saved
     B, H = h0.shape
     G = 4 * H
@@ -409,28 +480,33 @@ def _layer_backward(saved, dy, dhn, dcn, norm):
                                     @ dg_pre[1:].reshape(-1, G))
     else:
         # V1: the x-side gate and gh_pre as sequence-wide tensor code first,
-        # the LN_x backward and the parameter sums after.
+        # the LN_x backward and the parameter sums after, in float32.
         gx, gh_pre, c_prev = lstm_layer_bwd_v1_streams(
             gxp, y, c_seq, wh, glnx, blnx, bias, h0, c0, norm)
         dgate, dg_pre, dh0, dc0 = lstm_layer_bwd_v1(
             gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn, norm)
         h_prev = torch.cat([h0[None], y[:-1]])
         dwh = h_prev.reshape(-1, H).t() @ dg_pre.reshape(-1, G)
-        dsum = dgate.sum(dim=(0, 1))
+        dgate32 = dgate.float()
+        dsum = dgate32.sum(dim=(0, 1))
         dgxp = dgate                    # without LN_x, gx = gxp + bias
         if norm:
             mean, rstd = _ln_stats(gh_pre)
-            dgln = (dgate * ((gh_pre - mean) * rstd)).sum(dim=(0, 1))
-            meanx, rstdx = _ln_stats(gxp)
-            xhatx = (gxp - meanx) * rstdx
-            dgxp = _ln_bwd(dgate, glnx, xhatx, rstdx)
-            dglnx = (dgate * xhatx).sum(dim=(0, 1))
-        else:
-            dgln, dglnx = torch.zeros_like(bias), torch.zeros_like(bias)
-    # The sum of dgate is dbeta_x, dbeta_h and dbias alike.
-    dbeta = ((dsum.clone(), dsum.clone()) if norm else
-             (torch.zeros_like(bias), torch.zeros_like(bias)))
-    return dgxp, dwh, dglnx, dbeta[0], dgln, dbeta[1], dsum, dh0, dc0
+            dgln = (dgate32 * ((gh_pre - mean) * rstd)).sum(dim=(0, 1))
+            x = gxp.float()
+            meanx, rstdx = _ln_stats(x)
+            xhatx = (x - meanx) * rstdx
+            dgxp = _ln_bwd(dgate32, glnx.float(), xhatx, rstdx).to(gxp.dtype)
+            dglnx = (dgate32 * xhatx).sum(dim=(0, 1))
+    if not norm:
+        return (dgxp, dwh, torch.zeros_like(glnx), torch.zeros_like(blnx),
+                torch.zeros_like(gln), torch.zeros_like(bln),
+                dsum.to(bias.dtype), dh0, dc0)
+    # The sum of dgate is dbeta_x, dbeta_h and dbias alike; each gradient
+    # gets a tensor of its own.
+    return (dgxp, dwh, dglnx.to(glnx.dtype), dsum.to(blnx.dtype, copy=True),
+            dgln.to(gln.dtype), dsum.to(bln.dtype, copy=True),
+            dsum.to(bias.dtype, copy=True), dh0, dc0)
 
 
 class _LayerFunction(torch.autograd.Function):

@@ -96,7 +96,12 @@ def vtrace_losses_plain(is_weights, lp, reward, value, gamma=0.99,
     return pg_loss, value_loss
 
 
-def _check(name, tensors: dict, T, B):
+def _check(name, tensors: dict, T, B) -> dict:
+    """A CUDA kernel's inputs, made contiguous and checked; raises on what
+    the kernel cannot take.  A strided view (a (T, B) slice of a wider
+    buffer) is copied here: the kernels read dense planes, and the copy is
+    part of the call's time."""
+    tensors = {arg: t.contiguous() for arg, t in tensors.items()}
     _build.check_kernel_inputs(name, tensors)
     for arg, t in tensors.items():
         want = (T + 1, B) if arg == "value" else (T, B)
@@ -105,6 +110,7 @@ def _check(name, tensors: dict, T, B):
                              f"{tuple(t.shape)}")
     if T < 1 or B < 1:
         raise ValueError(f"{name}: T and B must be >= 1; got T={T}, B={B}")
+    return tensors
 
 
 def _scalars(gamma, lambda_, rho_clip, c_clip, pg_clip):
@@ -131,8 +137,9 @@ def _vtrace_losses_forward(is_weights, lp, reward, value, *clips):
         return vtrace_losses_plain(is_weights, lp, reward, value, *clips)
     name = "vtrace_losses"
     T, B = reward.shape if reward.ndim == 2 else (0, 0)
-    _check(name, {"is_weights": is_weights, "lp": lp, "reward": reward,
-                  "value": value}, T, B)
+    is_weights, lp, reward, value = _check(
+        name, {"is_weights": is_weights, "lp": lp, "reward": reward,
+               "value": value}, T, B).values()
     parts = torch.empty((2, B), dtype=torch.float32, device=reward.device)
     with torch.cuda.device(reward.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -189,8 +196,9 @@ def _vtrace_returns_adv_forward(is_weights, reward, value, *clips):
         return vtrace_returns_adv_plain(is_weights, reward, value, *clips)
     name = "vtrace_returns_adv"
     T, B = reward.shape if reward.ndim == 2 else (0, 0)
-    _check(name, {"is_weights": is_weights, "reward": reward,
-                  "value": value}, T, B)
+    is_weights, reward, value = _check(
+        name, {"is_weights": is_weights, "reward": reward, "value": value},
+        T, B).values()
     ret = torch.empty((T, B), dtype=torch.float32, device=reward.device)
     adv = torch.empty_like(ret)
     with torch.cuda.device(reward.device):
@@ -279,11 +287,10 @@ def td_lambda_loss_plain(value, reward, gamma, lambda_):
 
 
 def _check_pair(name, value, reward):
-    """(T, B) of a CUDA kernel's value (T+1, B) and reward (T, B); raises on
-    what the kernel cannot take."""
+    """A CUDA kernel's value (T+1, B) and reward (T, B), contiguous; raises
+    on what the kernel cannot take."""
     T, B = reward.shape if reward.ndim == 2 else (0, 0)
-    _check(name, {"value": value, "reward": reward}, T, B)
-    return T, B
+    return _check(name, {"value": value, "reward": reward}, T, B).values()
 
 
 def _launch(name, fn, value, reward, out, gamma, lambda_, *extra):
@@ -301,8 +308,8 @@ def _launch(name, fn, value, reward, out, gamma, lambda_, *extra):
 def _gae_forward(value, reward, gamma, lambda_):
     if _build.on_cpu(value, reward):
         return gae_plain(value, reward, gamma, lambda_)
-    T, _ = _check_pair("gae", value, reward)
-    denom = _gae_denominators(T, lambda_, reward)
+    value, reward = _check_pair("gae", value, reward)
+    denom = _gae_denominators(reward.shape[0], lambda_, reward)
     adv = torch.empty_like(reward)
     _launch("gae", "gae_f32", value, reward, adv, gamma, lambda_,
             denom.data_ptr())
@@ -313,7 +320,7 @@ def _gae_forward(value, reward, gamma, lambda_):
 def _lambda_returns_forward(value, reward, gamma, lambda_):
     if _build.on_cpu(value, reward):
         return lambda_returns_plain(value, reward, gamma, lambda_)
-    _check_pair("lambda_returns", value, reward)
+    value, reward = _check_pair("lambda_returns", value, reward)
     ret = torch.empty_like(reward)
     _launch("lambda_returns", "lambda_returns_f32", value, reward, ret, gamma,
             lambda_)
@@ -350,7 +357,7 @@ def td_lambda_err(value, reward, gamma: float, lambda_: float):
     the kernel or raise."""
     if _build.on_cpu(value, reward):
         return td_lambda_err_plain(value, reward, gamma, lambda_)
-    _check_pair("td_lambda_err", value, reward)
+    value, reward = _check_pair("td_lambda_err", value, reward)
     err = torch.empty_like(reward)
     _launch("td_lambda_err", "td_lambda_err_f32", value, reward, err, gamma,
             lambda_)
@@ -364,8 +371,9 @@ td_lambda_err.launches = 0
 def _td_lambda_loss_forward(value, reward, gamma, lambda_):
     if _build.on_cpu(value, reward):
         return td_lambda_loss_plain(value, reward, gamma, lambda_)
-    _, B = _check_pair("td_lambda_loss", value, reward)
-    parts = torch.empty((1, B), dtype=torch.float32, device=reward.device)
+    value, reward = _check_pair("td_lambda_loss", value, reward)
+    parts = torch.empty((1, reward.shape[1]), dtype=torch.float32,
+                        device=reward.device)
     _launch("td_lambda_loss", "td_lambda_loss_f32", value, reward, parts,
             gamma, lambda_)
     td_lambda_loss.launches += 1
@@ -437,19 +445,19 @@ def upgo_loss_plain(rhos, lp, reward, value):
 
 
 def _check_upgo(name, tensors: dict):
-    """(T, B) of a UPGO kernel's (T, B) planes and value (T+1, B)."""
+    """A UPGO kernel's (T, B) planes and value (T+1, B), contiguous, and
+    (T, B)."""
     reward = tensors["reward"]
     T, B = reward.shape if reward.ndim == 2 else (0, 0)
-    _check(name, tensors, T, B)
-    return T, B
+    return _check(name, tensors, T, B).values(), T, B
 
 
 def _upgo_advantages_forward(rhos, reward, value):
     if _build.on_cpu(rhos, reward, value):
         return upgo_advantages_plain(rhos, reward, value)
     name = "upgo_advantages"
-    T, B = _check_upgo(name, {"rhos": rhos, "reward": reward,
-                              "value": value})
+    (rhos, reward, value), T, B = _check_upgo(
+        name, {"rhos": rhos, "reward": reward, "value": value})
     adv = torch.empty_like(reward)
     with torch.cuda.device(reward.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -477,8 +485,8 @@ def _upgo_loss_forward(rhos, lp, reward, value):
     if _build.on_cpu(rhos, lp, reward, value):
         return upgo_loss_plain(rhos, lp, reward, value)
     name = "upgo_loss"
-    T, B = _check_upgo(name, {"rhos": rhos, "lp": lp, "reward": reward,
-                              "value": value})
+    (rhos, lp, reward, value), T, B = _check_upgo(
+        name, {"rhos": rhos, "lp": lp, "reward": reward, "value": value})
     parts = torch.empty((1, B), dtype=torch.float32, device=reward.device)
     with torch.cuda.device(reward.device):
         stream = torch.cuda.current_stream().cuda_stream

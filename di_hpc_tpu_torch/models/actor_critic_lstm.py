@@ -7,11 +7,14 @@ counterpart of the JAX package's models/actor_critic_lstm.py.
 categorical sample.  `make_train_step` builds the learner's step: that
 forward, `ops.vtrace_error`, the backward (the LSTM's hand-derived
 backward kernels, the V-trace loss kernel's recompute backward) and the
-optimizer's update.
+optimizer's update; with `compute_dtype=torch.bfloat16` the forward runs in
+bf16 (the LSTM kernels' bf16 streams) while the master parameters, the
+V-trace loss and the optimizer stay float32.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -89,11 +92,16 @@ def actor_critic_forward(
     norm_type: Optional[str] = "LN",
 ):
     """Returns (logits (S, B, A), value (S, B), next_state (h, c), each
-    (L, B, H)).  Runs where `params` and `obs` lie; differentiable in the
-    parameters on either device.  Under torch.no_grad() the LSTM layers
-    skip the cell-state stash the backward reads."""
+    (L, B, H)).  Runs where `params` and `obs` lie, in their dtype (float32,
+    or bf16 with bf16 streams in the LSTM kernels); differentiable in the
+    parameters on either device.  `params.lstm` is an LSTMWeights module or
+    an LSTMParams tuple.  Under torch.no_grad() the LSTM layers skip the
+    cell-state stash the backward reads."""
+    lstm = params.lstm
+    if not isinstance(lstm, LSTMParams):
+        lstm = lstm.params()
     x = torch.relu(torch.matmul(obs, params.embed_w) + params.embed_b)
-    y, next_state = lstm_fused(params.lstm.params(), x, state, norm_type)
+    y, next_state = lstm_fused(lstm, x, state, norm_type)
     logits = torch.matmul(y, params.policy_w) + params.policy_b
     value = torch.matmul(y, params.value_w[:, 0]) + params.value_b[0]
     return logits, value, next_state
@@ -108,7 +116,9 @@ def actor_step(
 ):
     """Serving-path actor step: one policy forward (the LSTM kernel at S=1)
     and a categorical sample drawn with `generator`, which lives on the
-    params' device.  Runs under torch.no_grad().
+    params' device.  Runs under torch.no_grad(), in the params' dtype; the
+    sample is drawn from the float32 softmax of the logits, which come back
+    in that dtype.
 
     The state is NOT updated in place: the caller's (h, c) tensors are left
     as they were and the new state comes back as new tensors.  (The JAX
@@ -120,9 +130,23 @@ def actor_step(
     with torch.no_grad():
         logits, value, new_state = actor_critic_forward(
             params, obs[None], state, norm_type)
-        probs = torch.softmax(logits[0], dim=-1)
+        probs = torch.softmax(logits[0].float(), dim=-1)
         action = torch.multinomial(probs, 1, generator=generator)[:, 0]
     return action, logits[0], value[0], new_state
+
+
+def _cast_params(params: ActorCriticParams, dtype) -> SimpleNamespace:
+    """The parameters cast to `dtype` (differentiable casts), with the
+    attributes actor_critic_forward reads; `lstm` an LSTMParams tuple."""
+    def cast(t):
+        return None if t is None else t.to(dtype)
+
+    lstm = LSTMParams(*(tuple(map(cast, f)) if isinstance(f, tuple)
+                        else cast(f) for f in params.lstm.params()))
+    return SimpleNamespace(
+        lstm=lstm, **{name: cast(getattr(params, name)) for name in (
+            "embed_w", "embed_b", "policy_w", "policy_b", "value_w",
+            "value_b")})
 
 
 def make_train_step(
@@ -150,22 +174,26 @@ def make_train_step(
     tensors on the params' device: total_loss, policy_loss, value_loss,
     entropy.
 
-    `compute_dtype` may only be None (or float32): the mixed-precision step
-    needs bf16 streams in the three LSTM kernels, the next slice in
-    ROADMAP.md, and raises NotImplementedError until then."""
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"make_train_step: compute_dtype={compute_dtype} needs bf16 "
-            f"streams in the LSTM forward and backward kernels; that is the "
-            f"bf16 slice in ROADMAP.md.  Use compute_dtype=None (float32).")
+    `compute_dtype=torch.bfloat16` is the mixed-precision step of the JAX
+    package (its actor_critic_lstm.py:121-151): inside the loss every float
+    parameter and `batch.obs` are cast to bf16, so the forward runs in bf16
+    (the embedding and head GEMMs and the LSTM kernels' bf16 streams) and
+    the gradients reach the float32 parameters through the casts; the
+    logits and values go to the float32 V-trace loss as float32, and the
+    parameters and Adam stay float32."""
 
     def loss_fn(params: ActorCriticParams, batch: TrainBatch):
-        logits, value, _ = actor_critic_forward(params, batch.obs, None,
+        obs = batch.obs
+        if compute_dtype is not None:
+            params = _cast_params(params, compute_dtype)
+            obs = obs.to(compute_dtype)
+        logits, value, _ = actor_critic_forward(params, obs, None,
                                                 cfg.norm_type)
         T = batch.actions.shape[0]
         losses = vtrace_error(
-            vtrace_data(logits[:T], batch.behaviour_logits.float(),
-                        batch.actions, value, batch.rewards.float(), None),
+            vtrace_data(logits[:T].float(), batch.behaviour_logits.float(),
+                        batch.actions, value.float(), batch.rewards.float(),
+                        None),
             gamma, lambda_)
         total = (losses.policy_loss + value_coef * losses.value_loss
                  - entropy_coef * losses.entropy_loss)

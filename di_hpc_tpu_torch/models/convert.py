@@ -84,7 +84,14 @@ class AlphaStarParams(nn.Module):
 
 
 def _tensor(a, device):
-    return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+    """A float32 tensor, or a bfloat16 one for a bf16 array: numpy has no
+    bfloat16 of its own (JAX's arrays come out as ml_dtypes.bfloat16), so
+    its bits are carried over through a uint16 view."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(a.view(np.uint16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(a, dtype=torch.float32, device=device)
 
 
 def _lstm_from(tree, device) -> LSTMParams:
@@ -102,7 +109,7 @@ def from_jax_params(tree, device="cuda"):
     """numpy ActorCriticParams -> ActorCriticParams module; the AlphaStar
     example's Params -> AlphaStarParams; EntitySelectionParams ->
     EntitySelectionParams module; LSTMParams -> LSTMWeights module.  Float32
-    on `device`."""
+    on `device`, bf16 where the array is bf16."""
     if hasattr(tree, "embed_w"):
         return ActorCriticParams(
             *(_lstm_from(tree.lstm, device) if f == "lstm"

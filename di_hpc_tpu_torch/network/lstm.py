@@ -8,6 +8,15 @@ and the state update -- runs in the whole-layer kernel
 (kernels.lstm_layer_fused), on the card for CUDA tensors and as its plain
 version on the CPU.  Gate order (i, f, o, u), the (in, 4H) weight layout and
 the parameter tuple are shared with the oracle (origin.rnn).
+
+As in the JAX package, a layer takes the recurrent path instead -- the
+two-pass LayerNorm and the bias over the whole gx, then a per-step loop of
+h @ Wh, LayerNorm, the gates and the state update in the stream dtype --
+exactly when `remat=True` (each step then runs under
+torch.utils.checkpoint, so the backward recomputes the cell activations
+instead of keeping them) or when Wh's dtype differs from the projection's.
+That is the reference's own routing by argument and dtype; with
+remat=False and matching dtypes a CUDA call takes the kernel or raises.
 """
 
 from __future__ import annotations
@@ -16,10 +25,12 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.lstm_cell import lstm_layer_fused
 from ..ops._validate import _fail
-from ..origin.rnn import LSTMParams, dropout_mask, init_lstm_params
+from ..origin.rnn import (LSTMParams, dropout_mask, init_lstm_params,
+                          layer_norm)
 
 __all__ = [
     "lstm_fused", "LSTM", "LSTMWeights", "LSTMParams", "init_lstm_params",
@@ -67,6 +78,48 @@ def unflatten_lstm_params(wx, wh, bias, ln_gamma, ln_beta,
                       ln_gamma[:, 4 * H:], ln_beta[:, 4 * H:])
 
 
+def _matmul(a, b, out_dtype):
+    """a @ b computed in the two operands' promoted dtype and returned in
+    out_dtype, as jnp.einsum(..., preferred_element_type=out_dtype) on
+    mixed inputs (torch.matmul takes one dtype).  Matching dtypes skip the
+    casts: the serving step is host-bound, and each cast is a call."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    y = torch.matmul(a, b)
+    return y if y.dtype == out_dtype else y.to(out_dtype)
+
+
+def _step(h, c, gx_t, wh, g_h, b_h):
+    """One step of the recurrent path (di_hpc_tpu/network/lstm.py:159-172):
+    returns (h, c)."""
+    gh = _matmul(h, wh, torch.promote_types(h.dtype, wh.dtype))
+    if g_h is not None:
+        gh = layer_norm(gh, g_h, b_h)
+    i, f, o, u = torch.chunk(gx_t + gh, 4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(u)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+def _recurrent_layer(gxp, wh, g_x, b_x, g_h, b_h, bias, h, c, remat):
+    """The JAX package's scan path for one layer (its network/lstm.py:
+    154-179): the two-pass LayerNorm and the bias over the whole gx, then
+    the per-step loop, each step under torch.utils.checkpoint with remat.
+    Every op runs in the promoted dtype of its operands, as JAX promotes
+    them (bf16 when all are bf16).  Returns (y (S, B, H), h_n, c_n)."""
+    gx = gxp if g_x is None else layer_norm(gxp, g_x, b_x)
+    gx = gx + bias
+    ys = []
+    for gx_t in gx:
+        if remat:
+            h, c = checkpoint(_step, h, c, gx_t, wh, g_h, b_h,
+                              use_reentrant=False)
+        else:
+            h, c = _step(h, c, gx_t, wh, g_h, b_h)
+        ys.append(h)
+    return torch.stack(ys), h, c
+
+
 def lstm_fused(
     params: LSTMParams,
     inputs: torch.Tensor,                                    # (S, B, in)
@@ -74,11 +127,13 @@ def lstm_fused(
     norm_type: Optional[str] = "LN",
     dropout: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    remat: bool = False,
 ):
     """Returns (output (S, B, H), (h (L, B, H), c (L, B, H))).
 
     Inter-layer dropout draws from `generator`, which must live on the
-    inputs' device."""
+    inputs' device.  `remat=True`, or Wh in another dtype than the input
+    projection, takes the recurrent path (module docstring)."""
     if inputs.ndim != 3:
         _fail("lstm_fused",
               f"inputs must be (S, B, input_size); got {tuple(inputs.shape)}")
@@ -102,16 +157,25 @@ def lstm_fused(
     x = inputs
     hs, cs = [], []
     for l in range(L):
-        gxp = torch.matmul(x, params.wx[l])          # (S, B, 4H), hoisted
+        gxp = _matmul(x, params.wx[l], x.dtype)      # (S, B, 4H), hoisted
+        wh = params.wh[l]
         if norm_type == "LN":
             g_x, b_x = params.ln_gamma_x[l], params.ln_beta_x[l]
             g_h, b_h = params.ln_gamma_h[l], params.ln_beta_h[l]
         else:
-            g_x = g_h = torch.ones_like(params.bias[l])
-            b_x = b_h = torch.zeros_like(params.bias[l])
-        x, h_l, c_l = lstm_layer_fused(
-            gxp, params.wh[l], g_x, b_x, g_h, b_h, params.bias[l],
-            H0[l].contiguous(), C0[l].contiguous(), norm_type == "LN")
+            g_x = b_x = g_h = b_h = None
+        if remat or wh.dtype != gxp.dtype:
+            x, h_l, c_l = _recurrent_layer(gxp, wh, g_x, b_x, g_h, b_h,
+                                           params.bias[l], H0[l], C0[l],
+                                           remat)
+        else:
+            if g_x is None:
+                g_x = g_h = torch.ones_like(params.bias[l])
+                b_x = b_h = torch.zeros_like(params.bias[l])
+            x, h_l, c_l = lstm_layer_fused(
+                gxp, wh, g_x, b_x, g_h, b_h, params.bias[l],
+                H0[l].to(gxp.dtype).contiguous(),
+                C0[l].to(gxp.dtype).contiguous(), norm_type == "LN")
         hs.append(h_l)
         cs.append(c_l)
         if dropout > 0.0 and l != L - 1:

@@ -5,7 +5,9 @@ step and the GAE and TD(lambda) ops on the card against the same calls on
 the CPU; the full-plane kernels (the linear recurrence, UPGO) against their
 plain versions, the scan entry points, ops.upgo_loss and the scatter
 connection on the card against the CPU, and one step of chip_smoke.py's
-AlphaStar trainer on the card against the CPU.
+AlphaStar trainer on the card against the CPU; the bf16 instantiations of the
+three LSTM kernels against their plain bf16 versions, the bf16 train step on
+the card against the CPU, and strided (T, B) inputs through the RL ops.
 
 Every test here is marked `gpu` and skips without a card (decided in the
 `cuda` fixture, never at import).  This file imports no JAX, so it also
@@ -16,7 +18,8 @@ runs where JAX is not installed:
 Tolerance: rtol=1e-4, atol=1e-4.  Both sides are float32 without TF32;
 they differ in summation order (the kernel's k-loop and warp sums against
 cuBLAS and PyTorch's reduction trees) and in FMA contraction, carried
-through the recurrences.
+through the recurrences.  bf16 outputs: chip_smoke.compare_bf16's bound,
+stated in chip_smoke.py at BF16_REL.
 """
 
 import numpy as np
@@ -105,7 +108,7 @@ def test_vtrace_kernels_match_plain(cuda, T, B):
 
 def test_cuda_wrappers_raise_on_what_they_cannot_take(cuda):
     args = _layer_inputs(10, 2, 3, 16, cuda)
-    with pytest.raises(TypeError, match="float32 only"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         kernels.lstm_layer_fused(args[0].double(), *args[1:])
     with pytest.raises(ValueError, match="must be contiguous"):
         kernels.lstm_layer_fused(args[0].transpose(0, 1), *args[1:])
@@ -163,7 +166,9 @@ def test_forward_and_serving_on_card_match_cpu(cuda):
                       "vtrace_returns_adv": 1, "gae": 0, "lambda_returns": 0,
                       "td_lambda_loss": 0, "td_lambda_err": 0,
                       "linear_scan": 0, "upgo_advantages": 0,
-                      "upgo_loss": 0}
+                      "upgo_loss": 0, "lstm_layer_fused_bf16": 0,
+                      "lstm_layer_bwd_v2_bf16": 0,
+                      "lstm_layer_bwd_v1_bf16": 0}
     for i, (g, w) in enumerate(zip(got, want)):
         torch.testing.assert_close(g.cpu(), w, rtol=RTOL, atol=ATOL,
                                    msg=f"output {i}")
@@ -402,10 +407,12 @@ def test_scan_wrappers_raise_on_what_they_cannot_take(cuda):
     value, reward = _scan_inputs(24, 6, 40, cuda)
     for name in SCAN_ARGS:
         fn = getattr(kernels, name)
-        with pytest.raises(TypeError, match="float32 only"):
+        with pytest.raises(TypeError, match="as torch.float32; got"):
             fn(value.double(), reward.double(), *SCAN_ARGS[name])
-        with pytest.raises(ValueError, match="must be contiguous"):
-            fn(value, reward.t().contiguous().t(), *SCAN_ARGS[name])
+        # A strided reward is copied to a dense plane by the wrapper.
+        torch.testing.assert_close(
+            fn(value, reward.t().contiguous().t(), *SCAN_ARGS[name]),
+            fn(value, reward, *SCAN_ARGS[name]), rtol=0, atol=0)
         with pytest.raises(ValueError, match=r"value must be \(7, 40\)"):
             fn(value[:-1], reward, *SCAN_ARGS[name])
         with pytest.raises(ValueError, match="all inputs must lie"):
@@ -595,7 +602,7 @@ def test_alphastar_step_on_card_matches_cpu(cuda):
 
 def test_full_plane_wrappers_raise_on_what_they_cannot_take(cuda):
     a, b, rhos, lp, reward, value = _full_plane_inputs(34, 6, 40, cuda)
-    with pytest.raises(TypeError, match="float32 only"):
+    with pytest.raises(TypeError, match="as torch.float32; got"):
         kernels.linear_scan(a.double(), b.double())
     with pytest.raises(ValueError, match="all inputs must lie"):
         kernels.linear_scan(a, b.cpu())
@@ -603,7 +610,202 @@ def test_full_plane_wrappers_raise_on_what_they_cannot_take(cuda):
         kernels.linear_scan(a[..., None], b[..., None])
     with pytest.raises(ValueError, match=r"value must be \(7, 40\)"):
         kernels.upgo_advantages(rhos, reward, value[:-1])
-    with pytest.raises(ValueError, match="must be contiguous"):
-        kernels.upgo_loss(rhos, lp.t().contiguous().t(), reward, value)
-    with pytest.raises(TypeError, match="float32 only"):
+    # A strided lp is copied to a dense plane by the wrapper.
+    torch.testing.assert_close(
+        kernels.upgo_loss(rhos, lp.t().contiguous().t(), reward, value),
+        kernels.upgo_loss(rhos, lp, reward, value), rtol=0, atol=0)
+    with pytest.raises(TypeError, match="as torch.float32; got"):
         kernels.upgo_loss(rhos, lp.double(), reward, value)
+
+
+# ------------------------------------------------------------ strided ----
+
+def test_strided_inputs_through_the_rl_ops_equal_the_contiguous_call(cuda):
+    """A (T, B) slice of a (T, B, 2) buffer through ops.gae,
+    ops.td_lambda_error (with its gradient), ops.upgo_loss and
+    ops.vtrace_error (unit weight and weighted) gives what its contiguous
+    copy gives: the wrappers copy strided inputs to dense planes."""
+    rng = np.random.default_rng(35)
+    T, B, N = 24, 40, 6
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda)
+    value2, reward2 = f(T + 1, B, 2), f(T, B, 2)
+    value, reward = value2[..., 0], reward2[..., 0]
+    assert not value.is_contiguous() and not reward.is_contiguous()
+    logits, behaviour = f(T, B, N), f(T, B, N)
+    action = torch.from_numpy(rng.integers(0, N, (T, B))).to(cuda)
+    rhos = torch.exp(0.2 * f(T, B))
+    weight = torch.rand((T, B), device=cuda)
+
+    def run(v, r):
+        vg = v.clone().requires_grad_() if v.is_contiguous() else \
+            v.detach().requires_grad_()
+        td = ops.td_lambda_error(ops.td_lambda_data(vg, r, None), 0.9, 0.8)
+        td.backward()
+        out = [ops.gae(ops.gae_data(v, r), 0.99, 0.95), td, vg.grad,
+               ops.upgo_loss(logits, rhos, action, r, v)]
+        for w in (None, weight):
+            out += list(ops.vtrace_error(ops.vtrace_data(
+                logits, behaviour, action, v, r, w)))
+        return out
+
+    kernels.reset_launch_counts()
+    got = run(value, reward)
+    counts = kernels.launch_counts()
+    want = run(value.contiguous(), reward.contiguous())
+    for name in ("gae", "td_lambda_loss", "td_lambda_err", "upgo_loss",
+                 "vtrace_losses", "vtrace_returns_adv"):
+        assert counts[name] >= 1, (name, counts)
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, msg=f"output {i}")
+
+
+# --------------------------------------------------------------- bf16 ----
+
+def _close_bf16(plain, args, got, want, msg, **kw):
+    """A bf16 kernel's outputs against its plain version's on the card, at
+    chip_smoke's bound: BF16_REL times the output's largest |entry| plus
+    twice the spread between the plain version on the CPU and on the card
+    (over a long unroll the recurrence amplifies bf16 rounding flips: to
+    0.046 of the largest |y| after 33 steps at H=512, measured on an
+    H100)."""
+    spread = chip_smoke.spread_vs_cpu(lambda *a: plain(*a, **kw), args, want)
+    chip_smoke.compare_bf16(msg, got, want, spread)
+
+
+def _bf16(tensors):
+    return [t.bfloat16() for t in tensors]
+
+
+def _bwd_inputs_bf16(seed, S, B, H, dev, wh_scale=0.1):
+    """_bwd_inputs in bf16, with y and c_seq from the plain bf16 forward."""
+    args = _bf16(_bwd_inputs(seed, S, B, H, dev, wh_scale))
+    with torch.no_grad():
+        y, c_seq, _, _ = kernels.lstm_layer_stash_plain(args[0], args[4],
+                                                        *args[5:12])
+    return [args[0], y, c_seq, *args[3:]]
+
+
+@pytest.mark.parametrize("S,B,H,norm", [(9, 13, 128, True), (1, 8, 128, True),
+                                        (5, 17, 96, False),
+                                        (33, 256, 512, True)])
+def test_lstm_layer_bf16_kernel_matches_plain(cuda, S, B, H, norm):
+    """The forward in bf16, with and without the stash, against the plain
+    bf16 version (its rounding points are the kernel's)."""
+    args = _bf16(_layer_inputs(36, S, B, H, cuda))
+    if H == 512:
+        args[1] = args[1] * (1 / np.sqrt(H) / 0.1)
+    with torch.no_grad():
+        before = (kernels.lstm_layer_fused.launches,
+                  kernels.lstm_layer_fused.launches_bf16)
+        got = kernels.lstm_layer_fused(*args, norm=norm)
+        stash = kernels.lstm_layer_stash(*args, norm=norm)
+        want = kernels.lstm_layer_stash_plain(*args, norm=norm)
+    torch.cuda.synchronize()
+    assert (kernels.lstm_layer_fused.launches,
+            kernels.lstm_layer_fused.launches_bf16) == (before[0],
+                                                       before[1] + 2)
+    _close_bf16(kernels.lstm_layer_stash_plain, args, stash, want, "stash",
+                norm=norm)
+    for g, p in zip(got, (stash[0], stash[2], stash[3])):
+        assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("S,B,H,norm", [(9, 13, 128, True), (5, 17, 96, False),
+                                        (33, 0, 512, True)])
+@pytest.mark.parametrize("variant", ["v2", "v1"])
+def test_lstm_bwd_bf16_kernels_match_plain(cuda, variant, S, B, H, norm):
+    if B == 0:
+        B, wh_scale = (256 if variant == "v2" else 32), 1 / np.sqrt(H)
+    else:
+        wh_scale = 0.1
+    args = _bwd_inputs_bf16(37, S, B, H, cuda, wh_scale)
+    if variant == "v1":
+        args = _v1_args(args, norm)
+        assert args[1].dtype == torch.float32          # gh_pre stays f32
+    wrapper = getattr(kernels, f"lstm_layer_bwd_{variant}")
+    plain = getattr(kernels, f"lstm_layer_bwd_{variant}_plain")
+    with torch.no_grad():
+        before = wrapper.launches_bf16
+        got = wrapper(*args, norm=norm)
+        torch.cuda.synchronize()
+        want = plain(*args, norm=norm)
+    assert wrapper.launches_bf16 == before + 1
+    _close_bf16(plain, args, got, want, variant, norm=norm)
+
+
+def test_lstm_bwd_v2_bf16_is_bitwise_repeatable(cuda):
+    args = _bwd_inputs_bf16(38, 9, 88, 128, cuda)
+    with torch.no_grad():
+        first = kernels.lstm_layer_bwd_v2(*args)
+        second = kernels.lstm_layer_bwd_v2(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_bf16_call_with_a_float32_tensor_raises(cuda):
+    args = _bf16(_layer_inputs(39, 3, 8, 32, cuda))
+    with pytest.raises(TypeError, match="takes wh as torch.bfloat16"):
+        kernels.lstm_layer_fused(args[0], args[1].float(), *args[2:])
+    bwd = _bwd_inputs_bf16(40, 3, 8, 32, cuda)
+    v1 = _v1_args(bwd, True)
+    with pytest.raises(TypeError, match="takes dy as torch.bfloat16"):
+        kernels.lstm_layer_bwd_v1(*v1[:4], v1[4].float(), *v1[5:])
+    with pytest.raises(TypeError, match="takes gh_pre as torch.float32"):
+        kernels.lstm_layer_bwd_v1(v1[0], v1[1].bfloat16(), *v1[2:])
+    with pytest.raises(TypeError, match="takes c0 as torch.bfloat16"):
+        kernels.lstm_layer_bwd_v2(*bwd[:11], bwd[11].float(), *bwd[12:])
+
+
+# B = 5 routes the LSTM backward through V1, B = 64 through V2.
+@pytest.mark.parametrize("B", [5, 64])
+def test_bf16_train_step_on_card_matches_cpu(cuda, B):
+    """One make_train_step(compute_dtype=torch.bfloat16) step with Adam on
+    the card (the bf16 kernels) against the same step on the CPU (the plain
+    bf16 versions): the metrics within 2e-3, every float32 master
+    gradient within 5e-2 times its largest |entry| (bf16 GEMMs round their
+    outputs on both sides, with other summation orders, and the bias
+    gradients sum (T+1)*B such rows), the parameters where the gradient is
+    above 1e-2 times its largest |entry| within 1e-6."""
+    cfg = models.ActorCriticConfig(obs_dim=24, hidden_size=128, num_layers=2,
+                                   action_dim=16)
+    arrays = models.to_numpy_params(models.init_actor_critic(
+        cfg, torch.Generator().manual_seed(2), device="cpu"))
+    rng = np.random.default_rng(41)
+    T = 8
+    batch = models.TrainBatch(
+        torch.from_numpy(rng.standard_normal((T + 1, B, 24))
+                         .astype(np.float32)),
+        torch.from_numpy(rng.integers(0, 16, (T, B))),
+        torch.from_numpy(rng.standard_normal((T, B)).astype(np.float32)),
+        torch.from_numpy(rng.standard_normal((T, B, 16)).astype(np.float32)))
+
+    def run(dev):
+        params = models.from_jax_params(arrays, device=dev)
+        opt = torch.optim.Adam(params.parameters(), lr=1e-3)
+        step = models.make_train_step(cfg, opt, compute_dtype=torch.bfloat16)
+        metrics = step(params, models.TrainBatch(*(x.to(dev) for x in batch)))
+        return metrics, params
+
+    kernels.reset_launch_counts()
+    got_m, got_p = run(cuda)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want_m, want_p = run(torch.device("cpu"))
+    variant = "lstm_layer_bwd_v2" if B >= kernels.V2_MIN_BATCH \
+        else "lstm_layer_bwd_v1"
+    assert counts["lstm_layer_fused_bf16"] == 2
+    assert counts[variant + "_bf16"] == 2
+    assert counts["lstm_layer_fused"] == counts[variant] == 0
+    for k in want_m:
+        assert got_m[k].dtype == torch.float32
+        torch.testing.assert_close(got_m[k].cpu(), want_m[k], rtol=2e-3,
+                                   atol=2e-3, msg=k)
+    for (name, g), (_, w) in zip(got_p.named_parameters(),
+                                 want_p.named_parameters()):
+        assert g.dtype == g.grad.dtype == torch.float32, name
+        scale = float(w.grad.abs().max())
+        torch.testing.assert_close(g.grad.cpu(), w.grad, rtol=0,
+                                   atol=5e-2 * scale, msg=f"grad {name}")
+        big = w.grad.abs() > 1e-2 * scale
+        torch.testing.assert_close(g.detach().cpu()[big], w.detach()[big],
+                                   rtol=0, atol=1e-6, msg=f"param {name}")

@@ -157,12 +157,16 @@ def test_launch_counts_reset():
     kernels.td_lambda_err.launches = 1
     kernels.linear_scan.launches = 4
     kernels.upgo_loss.launches = 5
+    kernels.lstm_layer_fused.launches_bf16 = 6
+    kernels.lstm_layer_bwd_v1.launches_bf16 = 7
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
         "lstm_layer_fused": 0, "lstm_layer_bwd_v2": 0, "lstm_layer_bwd_v1": 0,
         "vtrace_losses": 0, "vtrace_returns_adv": 0, "gae": 0,
         "lambda_returns": 0, "td_lambda_loss": 0, "td_lambda_err": 0,
-        "linear_scan": 0, "upgo_advantages": 0, "upgo_loss": 0}
+        "linear_scan": 0, "upgo_advantages": 0, "upgo_loss": 0,
+        "lstm_layer_fused_bf16": 0, "lstm_layer_bwd_v2_bf16": 0,
+        "lstm_layer_bwd_v1_bf16": 0}
 
 
 def _bwd_np(seed, S, B, H):

@@ -250,9 +250,21 @@ def _jax_leaf(tree, name):
 
 
 def test_train_step_refuses_bf16_compute():
+    """compute_dtype=torch.bfloat16 is no longer refused: it builds the
+    mixed-precision step, whose parameters, gradients and metrics stay
+    float32 (tests/test_torch_bf16.py holds it against JAX's)."""
     cfg = models.ActorCriticConfig(**CFG)
     params = models.init_actor_critic(cfg, torch.Generator().manual_seed(0),
                                       device="cpu")
     opt = torch.optim.Adam(params.parameters(), lr=1e-3)
-    with pytest.raises(NotImplementedError, match="bf16 slice in ROADMAP"):
-        models.make_train_step(cfg, opt, compute_dtype=torch.bfloat16)
+    step = models.make_train_step(cfg, opt, compute_dtype=torch.bfloat16)
+    B, T, A = 2, 2, CFG["action_dim"]
+    metrics = step(params, models.TrainBatch(
+        torch.randn(T + 1, B, CFG["obs_dim"],
+                    generator=torch.Generator().manual_seed(1)),
+        torch.zeros(T, B, dtype=torch.long), torch.ones(T, B),
+        torch.zeros(T, B, A)))
+    assert all(m.dtype == torch.float32 and torch.isfinite(m)
+               for m in metrics.values())
+    assert all(p.dtype == p.grad.dtype == torch.float32
+               for p in params.parameters())

@@ -218,3 +218,64 @@ def test_vtrace_wrapper_class():
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     with pytest.raises(ValueError, match="VTrace: target_output"):
         ops.VTrace(T, B, N + 1)(*data[:5])
+
+
+def _vtrace_rank3_np(seed, T, B, E, N, weighted):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    w = rng.uniform(0, 2, (T, B, E)).astype(np.float32) if weighted else None
+    return (f(T, B, E, N), f(T, B, E, N), rng.integers(0, N, (T, B, E)),
+            f(T + 1, B, E), f(T, B, E), w)
+
+
+def _vtrace_losses_and_grads(data, **kw):
+    """JAX's and the port's vtrace_error on `data`: the three losses and the
+    gradients of policy + 0.5 * value - 0.01 * entropy in the target logits
+    and the value, as numpy arrays."""
+    def jax_total(to, v):
+        d = [None if a is None else jnp.asarray(a) for a in data]
+        d[0], d[3] = to, v
+        l = jax_ops.vtrace_error(jax_ops.vtrace_data(*d), **kw)
+        return l.policy_loss + 0.5 * l.value_loss - 0.01 * l.entropy_loss, l
+
+    (_, jl), jg = jax.value_and_grad(jax_total, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(data[0]), jnp.asarray(data[3]))
+    t = _to_torch(data, requires_grad=(0, 3))
+    tl = ops.vtrace_error(ops.vtrace_data(*t), **kw)
+    (tl.policy_loss + 0.5 * tl.value_loss - 0.01 * tl.entropy_loss).backward()
+    return ([np.asarray(x) for x in (*jl, *jg)],
+            [x.detach().numpy() for x in (*tl, t[0].grad, t[3].grad)])
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_vtrace_error_rank3_matches_jax(weighted):
+    """(T, B, E) inputs: the kernels take (T, B) planes only, so both sides
+    compose the scan core (ops/vtrace.py's fused_kernels_ok gate): the
+    losses and the gradients in the target logits and the value."""
+    data = _vtrace_rank3_np(7, 5, 3, 2, 4, weighted)
+    want, got = _vtrace_losses_and_grads(data)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=1e-7,
+                                   err_msg=f"output {i}")
+
+
+@pytest.mark.parametrize("method", ["auto", "scan", "associative", "pallas"])
+@pytest.mark.parametrize("weight", [None, "TB"])
+def test_vtrace_error_methods_match_jax(interpret, monkeypatch, method,
+                                        weight):
+    """Every method at rank 2: "auto" and "pallas" take the kernels
+    (vtrace_losses with unit weight, vtrace_returns_adv with a weight; their
+    plain versions on the CPU), "scan" and "associative" compose the scan
+    core with that method; losses and gradients match JAX's."""
+    from di_hpc_tpu_torch.ops import vtrace as port_vtrace
+    calls = []
+    for name in ("vtrace_losses", "vtrace_returns_adv"):
+        real = getattr(port_vtrace, name)
+        monkeypatch.setattr(port_vtrace, name,
+                            lambda *a, _r=real: calls.append(1) or _r(*a))
+    data = _vtrace_np(8, 9, 6, 5, weight)
+    want, got = _vtrace_losses_and_grads(data, method=method)
+    assert bool(calls) == (method in ("auto", "pallas"))
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=1e-7,
+                                   err_msg=f"output {i}")
