@@ -17,8 +17,13 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 CUDA events (median over repetitions): a kernel's `ms` is one
                 call after the L2 was flushed, `ms_l2_warm` back-to-back
                 calls.  The LSTM backward kernels run at the train step's
-                shapes (V2 at S=33, B=256, V1 at S=33, B=32, H=512); V2 must
-                be bitwise repeatable; the layer's autograd.Function (stash
+                shapes (V2 at S=33, B=256, V1 at S=33, B=32, H=512), V2 also
+                at B=64 and at the ragged B=200; V2 must be bitwise
+                repeatable, and its rows print its launch (grid, cluster
+                size, rows per group, cudaOccupancyMaxActiveClusters,
+                ptxas' registers and spills); the float32 LSTM rows are
+                bounded at the 3xTF32 tensor-core rate; the layer's
+                autograd.Function (stash
                 forward, backward kernels) is held against autograd through
                 the plain forward.  The scan kernels (gae, lambda_returns,
                 td_lambda_loss, td_lambda_err, linear_scan both ways with a
@@ -27,7 +32,8 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 td_lambda_loss and upgo_loss must be bitwise repeatable.
                 The bf16 instantiations of the three LSTM kernels run at the
                 f32 rows' shapes (the forward at S=33 with and without the
-                stash and at S=1, V2 at S=33, B=256, V1 at S=33, B=32),
+                stash and at S=1, V2 at S=33, B=256, 64 and 200, V1 at
+                S=33, B=32),
                 each against its plain bf16 version on the card, bounded at
                 the bf16 tensor-core peak and at bf16 bytes.
   4. slice   -- the forward and serving path at full width, through the
@@ -130,11 +136,17 @@ from di_hpc_tpu_torch import (  # noqa: E402
 from di_hpc_tpu_torch.kernels import _build  # noqa: E402
 
 # H100 SXM data sheet peaks (dense, 700 W): HBM bytes/s, float32 FLOP/s
-# outside the tensor cores, and the bf16 tensor-core rate.  The kernels here
-# are float32 FMA code; a bf16 row is bounded at the bf16 rate, the least
-# time the card needs for bf16 work.
+# outside the tensor cores, and the bf16 tensor-core rate.  A bf16 row is
+# bounded at the bf16 rate, the least time the card needs for bf16 work.
+# The float32 rows of the LSTM kernels (1, 4, 5) are bounded at the 3xTF32
+# rate, a third of the TF32 tensor-core peak: products with float32
+# accuracy on the tensor cores take three TF32 passes (big*big + big*small
+# + small*big), and that is the least time the card needs for them (the
+# V2 kernel runs its products so).  The scan kernels' few operations stay
+# at the FMA rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32X3_FLOP_PER_S = 495e12 / 3
 BF16_FLOP_PER_S = 989e12
 
 # Kernel vs plain version, both float32 on the card (TF32 off): they differ
@@ -313,18 +325,19 @@ def lstm_bound(S, B, H, item=4):
 def lstm_bwd_bound(variant, S, B, H, item=4):
     """(bytes, ops) of the V2 or V1 backward function with `item`-byte
     streams: each input read once (V2 reads y and c_seq at steps 0..S-2
-    only), each output written once; V2's parameter partials and V1's
-    gh_pre are float32 for either stream type.  V2 does two products with
+    only), each output written once; V2's parameter partials (one
+    (3, 4H) row per group of rows) and V1's gh_pre are float32 for either
+    stream type.  V2 does two products with
     Wh per step (the gh_pre recompute and dh = dg_pre @ Wh^T), V1 one.
     LayerNorm and gate math, a few percent of the operations, are not
     counted."""
     G = 4 * H
     if variant == "v2":
-        ctas = (B + 7) // 8
+        groups = kernels.v2_launch_shape(B, H, item)["groups"]
         return (item * (S * B * G + 2 * (S - 1) * B * H + S * B * H + H * G
                         + 5 * G + 4 * B * H                          # in
                         + 2 * S * B * G + 2 * B * H)                 # out
-                + 4 * ctas * 3 * G,
+                + 4 * groups * 3 * G,
                 4 * S * B * H * G)
     return (item * (S * B * G + 3 * S * B * H + H * G + 2 * G + 2 * B * H
                     + 2 * S * B * G + 2 * B * H) + 4 * S * B * G,
@@ -495,7 +508,8 @@ def phase_kernels(dev) -> dict:
                                  per_rep=3))
             row["plain_ms"] = cuda_ms(lambda: kernels.lstm_layer_plain(*args),
                                       5)
-            row["bound_ms"], row["bound_by"] = bound_ms(*lstm_bound(S, B, H))
+            row["bound_ms"], row["bound_by"] = bound_ms(*lstm_bound(S, B, H),
+                                                        TF32X3_FLOP_PER_S)
             rows[f"lstm_layer_fused S={S}"] = row
 
         # The forward in stash mode, at the train step's unroll.
@@ -512,7 +526,7 @@ def phase_kernels(dev) -> dict:
             lambda: kernels.lstm_layer_stash_plain(*args), 5)
         nbytes, flops = lstm_bound(S, B, H)
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes + 4 * S * B * H,
-                                                    flops)
+                                                    flops, TF32X3_FLOP_PER_S)
         rows["lstm_layer_stash S=33"] = row
         rows.update(bwd_kernel_rows(rng, dev))
 
@@ -611,8 +625,10 @@ def bf16_kernel_rows(rng, dev) -> dict:
         rows[f"{name} bf16 S={S}"] = row
 
     S = 33
-    for name, B in (("lstm_layer_bwd_v2", 256), ("lstm_layer_bwd_v1", 32)):
-        args = [a.to(bf16) for a in bwd_inputs(rng, S, B, H, dev)]
+    extra = np.random.default_rng(SEED + 12)
+    for name, B in BWD_ROWS:
+        args = [a.to(bf16) for a in bwd_inputs(
+            rng if B in (256, 32) else extra, S, B, H, dev)]
         gxp, _, _, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn, dcn = \
             args
         y, c_seq, _, _ = kernels.lstm_layer_stash(gxp, wh, glnx, blnx, gln,
@@ -631,15 +647,17 @@ def bf16_kernel_rows(rng, dev) -> dict:
         row = {"shape": f"S={S},B={B},H={H}", **tol}
         if name.endswith("v2"):
             if not all(torch.equal(g, a) for g, a in zip(got, again)):
-                raise AssertionError(f"{name} bf16: repeated runs differ")
+                raise AssertionError(f"{name} bf16 B={B}: repeated runs "
+                                     f"differ")
             row["bitwise_repeatable"] = True
-        row.update(compare_bf16(f"{name} bf16", got, want,
+            row["launch"] = v2_launch_info(B, H, item=2)
+        row.update(compare_bf16(f"{name} bf16 B={B}", got, want,
                                 spread_vs_cpu(plain, args, want)))
         row.update(kernel_ms(lambda: wrapper(*args), per_rep=3))
         row["plain_ms"] = cuda_ms(lambda: plain(*args), 3, warmup=1)
         row["bound_ms"], row["bound_by"] = bound_ms(
             *lstm_bwd_bound(name[-2:], S, B, H, item=2), BF16_FLOP_PER_S)
-        rows[f"{name} bf16 S={S}"] = row
+        rows[bwd_row_key(name + " bf16", S, B)] = row
     return rows
 
 
@@ -659,6 +677,46 @@ def bwd_inputs(rng, S, B, H, dev):
 BWD_TOLERANCE = {"tolerance": {"rtol": RTOL, "atol": ATOL,
                                "atol_rel_to_max": BWD_ATOL_REL}}
 
+# The backward kernels' rows, in f32 and in bf16: V2 at the train step's
+# B=256, at the smallest batch it serves (V2_MIN_BATCH = 64) and at a B
+# that leaves a partial last group of rows, V1 at the train step's B=32.
+BWD_ROWS = (("lstm_layer_bwd_v2", 256), ("lstm_layer_bwd_v2", 64),
+            ("lstm_layer_bwd_v2", 200), ("lstm_layer_bwd_v1", 32))
+
+
+def bwd_row_key(name, S, B):
+    """The row's key: the train step's B is the row the kernels line
+    reads."""
+    return f"{name} S={S}" if B in (256, 32) else f"{name} S={S} B={B}"
+
+
+def ptxas_of(log, kernel, tag) -> list:
+    """ptxas' register, stack and spill lines for the instantiation of
+    `kernel` whose mangled name holds `tag`."""
+    out, on = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties" in ln:
+            on = kernel in ln and tag in ln
+        elif on and ("Used" in ln or "spill" in ln):
+            out.append(ln.split(":", 1)[-1].strip())
+    return out
+
+
+def v2_launch_info(B, H, item) -> dict:
+    """V2's launch at (B, H) with `item`-byte streams: rows per group,
+    cluster size, groups, grid, how many of its clusters the card holds at
+    once (cudaOccupancyMaxActiveClusters) and ptxas' registers and
+    spills."""
+    lib = _build.library()
+    shape = kernels.v2_launch_shape(B, H, item)
+    tag = ("I13__nv_bfloat16" if item == 2 else "If") + \
+        f"Li{shape['rows_per_group']}E"
+    return {**shape,
+            "max_active_clusters":
+                lib.cdll.lstm_layer_bwd_v2_max_active_clusters(B, H, item),
+            "smem_bytes": lib.cdll.lstm_layer_bwd_v2_smem_bytes(H, item),
+            "ptxas": ptxas_of(lib.build_log, "lstm_layer_bwd_v2_kernel", tag)}
+
 
 def bwd_kernel_rows(rng, dev) -> dict:
     """Both LSTM backward kernels against their plain versions at the train
@@ -666,8 +724,9 @@ def bwd_kernel_rows(rng, dev) -> dict:
     against autograd through the plain forward."""
     rows = {}
     S, H = 33, 512
-    for name, B in (("lstm_layer_bwd_v2", 256), ("lstm_layer_bwd_v1", 32)):
-        args = bwd_inputs(rng, S, B, H, dev)
+    extra = np.random.default_rng(SEED + 11)
+    for name, B in BWD_ROWS:
+        args = bwd_inputs(rng if B in (256, 32) else extra, S, B, H, dev)
         if name.endswith("v1"):
             gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn, \
                 dcn = args
@@ -683,14 +742,15 @@ def bwd_kernel_rows(rng, dev) -> dict:
         row = {"shape": f"S={S},B={B},H={H}", **BWD_TOLERANCE}
         if name.endswith("v2"):
             if not all(torch.equal(g, a) for g, a in zip(got, again)):
-                raise AssertionError(f"{name}: repeated runs differ")
+                raise AssertionError(f"{name} B={B}: repeated runs differ")
             row["bitwise_repeatable"] = True
-        row.update(compare(name, got, want, atol_rel=BWD_ATOL_REL))
+            row["launch"] = v2_launch_info(B, H, item=4)
+        row.update(compare(f"{name} B={B}", got, want, atol_rel=BWD_ATOL_REL))
         row.update(kernel_ms(lambda: wrapper(*args), per_rep=3))
         row["plain_ms"] = cuda_ms(lambda: plain(*args), 3, warmup=1)
         row["bound_ms"], row["bound_by"] = bound_ms(
-            *lstm_bwd_bound(name[-2:], S, B, H))
-        rows[f"{name} S={S}"] = row
+            *lstm_bwd_bound(name[-2:], S, B, H), TF32X3_FLOP_PER_S)
+        rows[bwd_row_key(name, S, B)] = row
 
     # The autograd.Function's 9 gradients at the train step's B=256 (V2),
     # against PyTorch's autograd through the plain forward, on the card.
@@ -1703,7 +1763,7 @@ def phase_profile(dev) -> dict:
 KERNELS = (
     ("lstm_layer_fused", "di_hpc_tpu_torch/csrc/lstm_layer.cu",
      "di_hpc_tpu/pallas_kernels/lstm_cell.py:115", "lstm_layer_fused S=33"),
-    ("lstm_layer_bwd_v2", "di_hpc_tpu_torch/csrc/lstm_layer_bwd.cu",
+    ("lstm_layer_bwd_v2", "di_hpc_tpu_torch/csrc/lstm_layer_bwd_v2.cu",
      "di_hpc_tpu/pallas_kernels/lstm_cell.py:389", "lstm_layer_bwd_v2 S=33"),
     ("lstm_layer_bwd_v1", "di_hpc_tpu_torch/csrc/lstm_layer_bwd.cu",
      "di_hpc_tpu/pallas_kernels/lstm_cell.py:276", "lstm_layer_bwd_v1 S=33"),
@@ -1729,7 +1789,7 @@ KERNELS = (
     ("lstm_layer_fused_bf16", "di_hpc_tpu_torch/csrc/lstm_layer.cu",
      "di_hpc_tpu/pallas_kernels/lstm_cell.py:115",
      "lstm_layer_fused bf16 S=33"),
-    ("lstm_layer_bwd_v2_bf16", "di_hpc_tpu_torch/csrc/lstm_layer_bwd.cu",
+    ("lstm_layer_bwd_v2_bf16", "di_hpc_tpu_torch/csrc/lstm_layer_bwd_v2.cu",
      "di_hpc_tpu/pallas_kernels/lstm_cell.py:389",
      "lstm_layer_bwd_v2 bf16 S=33"),
     ("lstm_layer_bwd_v1_bf16", "di_hpc_tpu_torch/csrc/lstm_layer_bwd.cu",

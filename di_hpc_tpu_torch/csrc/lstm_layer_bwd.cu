@@ -1,75 +1,44 @@
-// LN-LSTM layer backward: the whole reverse time loop inside one kernel
-// launch, in two variants.
+// LN-LSTM layer backward, V1: the whole reverse time loop inside one kernel
+// launch.  (V2, the variant for B >= 64, is lstm_layer_bwd_v2.cu.)
 //
-// V2 replaces di_hpc_tpu/pallas_kernels/lstm_cell.py:_bwd_kernel_v2 (the
-// train step at B >= 64).  Per step t = S-1 .. 0 and batch row b it
-// recomputes the forward from the stashed streams -- gh_pre = h_{t-1} @ Wh
-// (h_{t-1} = y_{t-1}, h0 at t = 0), both LayerNorms (LN_x on the raw gxp),
-// the gates, c_t = f*c_{t-1} + i*u and tanh(c_t) -- then runs
+// V1 replaces di_hpc_tpu/pallas_kernels/lstm_cell.py:_bwd_kernel (B < 64).
+// Per step t = S-1 .. 0 and batch row b, from streams the caller precomputes
+// -- the x-side gate gx = LN_x(gxp) + bias and gh_pre = h_{t-1} @ Wh -- and
+// the stashed c_{t-1}, c_t, it runs
 //
 //   dh = dh_carry + dy_t;  dc = dc_carry + dh*o*(1 - tanh(c_t)^2)
 //   dgate = [dc*u*i(1-i), dc*c_{t-1}*f(1-f), dh*tanh(c_t)*o(1-o), dc*i(1-u^2)]
-//   dgxp_t   = LN_x backward of dgate            (written out)
-//   dg_pre_t = LN_h backward of dgate            (written out)
+//   dg_pre_t = LN_h backward of dgate
 //   dh_carry = dg_pre_t @ Wh^T;  dc_carry = dc*f
 //
-// and sums dgamma_h = sum dgate*xhat_h, dgamma_x = sum dgate*xhat_x and
-// sum dgate (which is dbeta_x, dbeta_h and dbias alike) over rows and steps.
-// At the end it writes dh0/dc0.  dWh = sum_t h_{t-1}^T dg_pre_t is left to
-// two matrix products outside, as the JAX package leaves it to XLA
-// (lstm_cell.py:642-643).
+// and writes dgate and dg_pre; at the end dh0/dc0.  The LN_x backward, dWh,
+// dgamma/dbeta and dbias are the caller's (lstm_cell.py:658-706).
 //
-// V1 replaces lstm_cell.py:_bwd_kernel (B < 64): the same cell and LN_h
-// backward and the same carries, but from streams the caller precomputes --
-// the x-side gate gx = LN_x(gxp) + bias and gh_pre = h_{t-1} @ Wh -- and it
-// writes dgate and dg_pre; the LN_x backward, dWh, dgamma/dbeta and dbias
-// are the caller's (lstm_cell.py:658-706).
-//
-// What bounds them on an H100: the f32 products on the FMA pipes -- V2 does
-// two per step (the gh_pre recompute and dh = dg_pre @ Wh^T), 4*S*B*H*4H
-// operations, V1 one.  At S=33, B=256, H=512 V2 does 35.4 GFLOP against
-// ~264 MB of streams: operations bound.
+// What bounds it on an H100: the f32 product dh = dg_pre @ Wh^T on the FMA
+// pipes, 2*S*B*H*4H operations.
 //
 // Design.  As in the forward (lstm_layer.cu), one CTA owns kRows batch rows
-// for the whole reverse loop, and nothing crosses CTAs inside the loop.  Wh
-// and Wh^T (the caller passes a contiguous transpose, made once per call)
-// stream from L2 in float4 column strips against k-major operand tiles in
-// shared memory, with the forward's own product code
-// (lstm_common.cuh:matmul_rows), so V2's recompute repeats the forward's
-// sums in the forward's order.  dh = dg_pre @ Wh^T has only H output
-// columns, so its K = 4H is split in four slices over the CTA's threads and
-// the four partials are added in a fixed order.  The raw gxp stays in
-// L2 rather than in shared memory: a second (kRows, 4H) tile would take V2
-// past the 227 KB a CTA may have at H = 512.  The TPU kernel accumulates the
-// parameter sums in VMEM blocks revisited across its sequential grid; here
-// each CTA keeps its own sums in shared memory and writes them out once as
-// a (CTAs, 3, 4H) partial, which the caller reduces with torch.sum in a
-// fixed order: no float atomics, so repeated runs are bitwise equal.  Rows
-// past B load zeros for every input (h, c, gxp, dy and the carries), so
-// their dgate is exactly zero and they add nothing to the sums.
+// for the whole reverse loop, and nothing crosses CTAs inside the loop.  Wh^T
+// (the caller passes a contiguous transpose, made once per call) streams from
+// L2 in float4 column strips against a k-major operand tile in shared memory,
+// with the forward's own product code (lstm_common.cuh:matmul_rows).  dh =
+// dg_pre @ Wh^T has only H output columns, so its K = 4H is split in four
+// slices over the CTA's threads and the four partials are added in a fixed
+// order.  Rows past B load zeros for every input (gx, gh_pre, c, dy and the
+// carries), so their dgate is exactly zero.
 //
-// bf16 streams (T = __nv_bfloat16), as the TPU kernels take them: every
-// stream, Wh and the vectors are bf16 and are widened on load; the math, the
-// dh/dc carries and V2's parameter sums are f32.  V2 recomputes gh_pre from
-// the bf16 h_{t-1} (lstm_cell.py:431-434) and c_t from the bf16 c_{t-1}
-// stash, as the TPU kernel does; d(gxp) and d(gh_pre) are stored as bf16,
-// and the dh carry is bf16(d(gh_pre)) @ Wh^T summed in f32 (:527-529), so
-// the dg_pre tile in shared memory holds the rounded values.  V1's inputs
-// are mixed, as at lstm_cell.py:658-706: gx, c_{t-1}, c_t, dy and Wh are
-// bf16 but gh_pre is f32; dgate, d(gh_pre), dh0 and dc0 come out bf16.
-// With bf16 the operations are the same f32 FMAs and the bytes halve.
+// bf16 streams (T = __nv_bfloat16), as the TPU kernel takes them, mixed as at
+// lstm_cell.py:658-706: gx, c_{t-1}, c_t, dy and Wh are bf16 but gh_pre is
+// f32; dgate, d(gh_pre), dh0 and dc0 come out bf16.  The math and the dh/dc
+// carries are f32, and the dh carry is bf16(d(gh_pre)) @ Wh^T summed in f32,
+// so the dg_pre tile in shared memory holds the rounded values.  With bf16
+// the operations are the same f32 FMAs and the bytes halve.
 
 #include "lstm_common.cuh"
 
 namespace {
 
 using namespace lstm;
-
-__host__ __device__ constexpr size_t v2_smem_floats(int H) {
-  // gh (kRows, 4H) + dT (4H, kRows) + hT (H, kRows) + dh, dc (kRows, H)
-  // + sums (3, 4H) + stats (kRows, 8)
-  return (size_t)kRows * (2 * 4 * H + 3 * H) + 3 * 4 * H + 8 * kRows;
-}
 
 __host__ __device__ constexpr size_t v1_smem_floats(int H) {
   // gh (kRows, 4H) + dT (4H, kRows) + dh, dc (kRows, H) + stats (kRows, 4)
@@ -88,12 +57,11 @@ __device__ __forceinline__ void store_rows8(float* p, const float (&v)[kRows]) {
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// Cell backward of one (row, unit) from the gate pre-activations and
-// c_{t-1}: writes the four dgate entries into dT_s (k-major) and, with
-// dgate_out, to global memory; returns the new dc carry.  c_t is recomputed
-// as the forward computed it (V2), or, with kStash, the stashed c_stash
-// (V1, as the TPU kernel reads it).
-template <bool kStash, typename T>
+// Cell backward of one (row, unit) from the gate pre-activations, c_{t-1}
+// and the stashed c_t (as the TPU kernel reads it): writes the four dgate
+// entries into dT_s (k-major) and, with dgate_out, to global memory;
+// returns the new dc carry.
+template <typename T>
 __device__ __forceinline__ float cell_backward(const float (&pre)[4], float cp,
                                                float c_stash, float dh,
                                                float dc_carry, float* dT_s,
@@ -103,7 +71,7 @@ __device__ __forceinline__ float cell_backward(const float (&pre)[4], float cp,
   const float sf = sigmoid_f(pre[1]);
   const float so = sigmoid_f(pre[2]);
   const float su = tanhf(pre[3]);
-  const float tc = tanhf(kStash ? c_stash : sf * cp + si * su);
+  const float tc = tanhf(c_stash);
   const float dc = dc_carry + dh * so * (1.f - tc * tc);
   const float d[4] = {(dc * su) * si * (1.f - si), (dc * cp) * sf * (1.f - sf),
                       (dh * tc) * so * (1.f - so), (dc * si) * (1.f - su * su)};
@@ -149,189 +117,6 @@ __device__ __forceinline__ void init_carries(const T* __restrict__ dhn,
     dh_s[i] = row < B ? to_f(dhn[(size_t)row * H + j]) : 0.f;
     dc_s[i] = row < B ? to_f(dcn[(size_t)row * H + j]) : 0.f;
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
-                         const T* __restrict__ y,
-                         const T* __restrict__ c_seq,
-                         const T* __restrict__ dy,
-                         const T* __restrict__ wh,
-                         const T* __restrict__ whT,
-                         const T* __restrict__ glnx,
-                         const T* __restrict__ blnx,
-                         const T* __restrict__ gln,
-                         const T* __restrict__ bln,
-                         const T* __restrict__ bias,
-                         const T* __restrict__ h0,
-                         const T* __restrict__ c0,
-                         const T* __restrict__ dhn,
-                         const T* __restrict__ dcn,
-                         T* __restrict__ dgxp,
-                         T* __restrict__ dgpre,
-                         float* __restrict__ part,     // (CTAs, 3, 4H), f32
-                         T* __restrict__ dh0,
-                         T* __restrict__ dc0,
-                         int S, int B, int H, int norm) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int G = 4 * H;
-  float* gh_s = smem;                 // (kRows, G): gh_pre; dh scratch
-  float* dT_s = gh_s + kRows * G;     // (G, kRows): dgate, then dg_pre
-  float* hT_s = dT_s + G * kRows;     // (H, kRows): h_{t-1}
-  float* dh_s = hT_s + H * kRows;     // (kRows, H): dh carry
-  float* dc_s = dh_s + kRows * H;     // (kRows, H): dc carry
-  float* sum_s = dc_s + kRows * H;    // (3, G): dgamma_h, dgamma_x, sum dgate
-  float* st_s = sum_s + 3 * G;        // (kRows, 8): mean_h rstd_h mean_x
-                                      // rstd_x m1_h m2_h m1_x m2_x
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int row0 = blockIdx.x * kRows;
-  const float inv_g = 1.0f / (float)G;
-
-  init_carries(dhn, dcn, dh_s, dc_s, B, H, row0);
-  for (int i = tid; i < 3 * G; i += kThreads) sum_s[i] = 0.f;
-
-  for (int t = S - 1; t >= 0; --t) {
-    const T* x_t = gxp + (size_t)t * B * G;            // rows of step t
-    // A. h_{t-1} into hT_s, k-major.
-    const T* hp = t > 0 ? y + (size_t)(t - 1) * B * H : h0;
-    for (int i = tid; i < kRows * H; i += kThreads) {
-      const int b = i / H, j = i - b * H, row = row0 + b;
-      hT_s[j * kRows + b] = row < B ? to_f(hp[(size_t)row * H + j]) : 0.f;
-    }
-    __syncthreads();
-
-    // B. gh_pre = h_{t-1} @ Wh, the forward's product.
-    matmul_rows<1>(hT_s, wh, H, G, gh_s);
-    __syncthreads();
-
-    // C. One warp per row: LayerNorm statistics of gh_pre and the raw gxp.
-    if (warp < kRows) {
-      const int b = warp, row = row0 + b;
-      const T* src = x_t + (size_t)row * G;
-      float sh = 0.f, sh2 = 0.f, sx = 0.f, sx2 = 0.f;
-      for (int col = 4 * lane; col < G; col += 4 * 32) {
-        const float4 g = *reinterpret_cast<const float4*>(gh_s + b * G + col);
-        const float4 x = row < B ? load4(src + col)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-        accum_quad(g, sh, sh2);
-        accum_quad(x, sx, sx2);
-      }
-      const float2 st_h = finish_stats(sh, sh2, G);
-      const float2 st_x = finish_stats(sx, sx2, G);
-      if (lane == 0) {
-        st_s[b * 8 + 0] = st_h.x;
-        st_s[b * 8 + 1] = st_h.y;
-        st_s[b * 8 + 2] = st_x.x;
-        st_s[b * 8 + 3] = st_x.y;
-      }
-    }
-    __syncthreads();
-
-    // D. Recompute the gates and run the cell backward, one (row, unit)
-    //    per item; dgate into dT_s.
-    const T* cp_t = t > 0 ? c_seq + (size_t)(t - 1) * B * H : c0;
-    for (int i = tid; i < kRows * H; i += kThreads) {
-      const int b = i / H, j = i - b * H, row = row0 + b;
-      const bool valid = row < B;
-      const float* st = st_s + b * 8;
-      float pre[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int col = q * H + j;
-        float xg = valid ? ldf(x_t + (size_t)row * G + col) : 0.f;
-        float hg = gh_s[b * G + col];
-        if (norm) {
-          xg = (xg - st[2]) * st[3] * ldf(glnx + col) + ldf(blnx + col);
-          hg = (hg - st[0]) * st[1] * ldf(gln + col) + ldf(bln + col);
-        }
-        pre[q] = (xg + ldf(bias + col)) + hg;
-      }
-      const float cp = valid ? to_f(cp_t[(size_t)row * H + j]) : 0.f;
-      const float dh =
-          dh_s[i] + (valid ? to_f(dy[((size_t)t * B + row) * H + j]) : 0.f);
-      dc_s[i] = cell_backward<false>(pre, cp, 0.f, dh, dc_s[i], dT_s, H, j, b,
-                                     static_cast<T*>(nullptr));
-    }
-    __syncthreads();
-
-    // E. LayerNorm backward row means, one warp per row:
-    //    m1 = mean(dgate*gamma), m2 = mean(dgate*gamma*xhat), both sides.
-    if (norm && warp < kRows) {
-      const int b = warp, row = row0 + b;
-      const float* st = st_s + b * 8;
-      float s1 = 0.f, s2 = 0.f, s1x = 0.f, s2x = 0.f;
-      for (int col = lane; col < G; col += 32) {
-        const float dg = dT_s[col * kRows + b];
-        const float xh = (gh_s[b * G + col] - st[0]) * st[1];
-        const float xv = row < B ? ldf(x_t + (size_t)row * G + col) : 0.f;
-        const float xx = (xv - st[2]) * st[3];
-        const float a = dg * ldf(gln + col), ax = dg * ldf(glnx + col);
-        s1 += a;
-        s2 += a * xh;
-        s1x += ax;
-        s2x += ax * xx;
-      }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      s1x = warp_sum(s1x);
-      s2x = warp_sum(s2x);
-      if (lane == 0) {
-        st_s[b * 8 + 4] = s1 * inv_g;
-        st_s[b * 8 + 5] = s2 * inv_g;
-        st_s[b * 8 + 6] = s1x * inv_g;
-        st_s[b * 8 + 7] = s2x * inv_g;
-      }
-    }
-    __syncthreads();
-
-    // F. One column per item: dgxp_t and dg_pre_t out, dg_pre kept in dT_s
-    //    for the dh product, the parameter sums added.
-    for (int col = tid; col < G; col += kThreads) {
-      float dg[kRows];
-      load_rows8(dT_s + col * kRows, dg);
-      const float g_h = norm ? ldf(gln + col) : 1.f;
-      const float g_x = norm ? ldf(glnx + col) : 1.f;
-      float a_h = 0.f, a_x = 0.f, a_s = 0.f;
-#pragma unroll
-      for (int b = 0; b < kRows; ++b) {
-        const int row = row0 + b;
-        const bool valid = row < B;
-        const size_t o = ((size_t)t * B + row) * G + col;
-        const float* st = st_s + b * 8;
-        float gp = dg[b], gxo = dg[b];
-        a_s += dg[b];
-        if (norm) {
-          const float xh = (gh_s[b * G + col] - st[0]) * st[1];
-          const float xx = ((valid ? ldf(gxp + o) : 0.f) - st[2]) * st[3];
-          gp = st[1] * (dg[b] * g_h - st[4] - xh * st[5]);
-          gxo = st[3] * (dg[b] * g_x - st[6] - xx * st[7]);
-          a_h += dg[b] * xh;
-          a_x += dg[b] * xx;
-        }
-        if (valid) {
-          put(dgpre + o, gp);
-          put(dgxp + o, gxo);
-        }
-        dg[b] = round_to<T>(gp);      // the dh product reads the stored value
-      }
-      store_rows8(dT_s + col * kRows, dg);
-      sum_s[col] += a_h;
-      sum_s[G + col] += a_x;
-      sum_s[2 * G + col] += a_s;
-    }
-    __syncthreads();
-
-    // G. dh carry = dg_pre @ Wh^T; dh0/dc0 out at t = 0.
-    carry_dh(dT_s, whT, gh_s, dh_s, dc_s, dh0, dc0, t, B, H, row0);
-  }
-
-  float* out = part + (size_t)blockIdx.x * 3 * G;
-  for (int i = tid; i < 3 * G; i += kThreads) out[i] = sum_s[i];
 }
 
 template <typename T>
@@ -406,9 +191,9 @@ lstm_layer_bwd_v1_kernel(const T* __restrict__ gx,
       }
       const float cp = valid ? to_f(c_prev[oh]) : 0.f;
       const float dh = dh_s[i] + (valid ? to_f(dy[oh]) : 0.f);
-      dc_s[i] = cell_backward<true>(pre, cp, valid ? to_f(c_seq[oh]) : 0.f,
-                                    dh, dc_s[i], dT_s, H, j, b,
-                                    valid ? dgate + og : nullptr);
+      dc_s[i] = cell_backward(pre, cp, valid ? to_f(c_seq[oh]) : 0.f, dh,
+                              dc_s[i], dT_s, H, j, b,
+                              valid ? dgate + og : nullptr);
     }
     __syncthreads();
 
@@ -466,23 +251,6 @@ int set_smem(Kernel kernel, size_t smem) {
 }
 
 template <typename T>
-int launch_v2(const T* gxp, const T* y, const T* c_seq, const T* dy,
-              const T* wh, const T* whT, const T* glnx, const T* blnx,
-              const T* gln, const T* bln, const T* bias, const T* h0,
-              const T* c0, const T* dhn, const T* dcn, T* dgxp, T* dgpre,
-              float* part, T* dh0, T* dc0, int S, int B, int H, int norm,
-              void* stream) {
-  const size_t smem = v2_smem_floats(H) * sizeof(float);
-  const int err = set_smem(lstm_layer_bwd_v2_kernel<T>, smem);
-  if (err != 0) return err;
-  const dim3 grid((B + kRows - 1) / kRows);
-  lstm_layer_bwd_v2_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      gxp, y, c_seq, dy, wh, whT, glnx, blnx, gln, bln, bias, h0, c0, dhn,
-      dcn, dgxp, dgpre, part, dh0, dc0, S, B, H, norm);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch_v1(const T* gx, const float* ghp, const T* c_prev, const T* c_seq,
               const T* dy, const T* whT, const T* gln, const T* bln,
               const T* dhn, const T* dcn, T* dgate, T* dgpre, T* dh0, T* dc0,
@@ -501,51 +269,16 @@ int launch_v1(const T* gx, const float* ghp, const T* c_prev, const T* c_seq,
 
 extern "C" {
 
-// Dynamic shared memory one CTA of each variant needs at hidden size H (the
-// same for f32 and bf16 streams: the tiles are f32).
-long long lstm_layer_bwd_v2_smem_bytes(int H) {
-  return (long long)(v2_smem_floats(H) * sizeof(float));
-}
-
+// Dynamic shared memory one CTA needs at hidden size H (the same for f32
+// and bf16 streams: the tiles are f32).
 long long lstm_layer_bwd_v1_smem_bytes(int H) {
   return (long long)(v1_smem_floats(H) * sizeof(float));
 }
 
-// V2.  gxp (S, B, 4H), y, c_seq, dy (S, B, H), wh (H, 4H), whT (4H, H) its
-// contiguous transpose, the five (4H,) vectors, h0/c0/dhn/dcn (B, H) in;
-// dgxp, dgpre (S, B, 4H), part (ceil(B/8), 3, 4H) f32, dh0/dc0 (B, H) out.
-// All but part of one type (f32 or bf16), contiguous, H % 4 == 0, wh/whT
-// 16-byte aligned.  Returns the launch status (cudaSuccess == 0).
-int lstm_layer_bwd_v2_f32(const float* gxp, const float* y,
-                          const float* c_seq, const float* dy,
-                          const float* wh, const float* whT,
-                          const float* glnx, const float* blnx,
-                          const float* gln, const float* bln,
-                          const float* bias, const float* h0, const float* c0,
-                          const float* dhn, const float* dcn, float* dgxp,
-                          float* dgpre, float* part, float* dh0, float* dc0,
-                          int S, int B, int H, int norm, void* stream) {
-  return launch_v2(gxp, y, c_seq, dy, wh, whT, glnx, blnx, gln, bln, bias, h0,
-                   c0, dhn, dcn, dgxp, dgpre, part, dh0, dc0, S, B, H, norm,
-                   stream);
-}
-
-int lstm_layer_bwd_v2_bf16(const bf16* gxp, const bf16* y, const bf16* c_seq,
-                           const bf16* dy, const bf16* wh, const bf16* whT,
-                           const bf16* glnx, const bf16* blnx,
-                           const bf16* gln, const bf16* bln, const bf16* bias,
-                           const bf16* h0, const bf16* c0, const bf16* dhn,
-                           const bf16* dcn, bf16* dgxp, bf16* dgpre,
-                           float* part, bf16* dh0, bf16* dc0, int S, int B,
-                           int H, int norm, void* stream) {
-  return launch_v2(gxp, y, c_seq, dy, wh, whT, glnx, blnx, gln, bln, bias, h0,
-                   c0, dhn, dcn, dgxp, dgpre, part, dh0, dc0, S, B, H, norm,
-                   stream);
-}
-
 // V1.  gx, gh_pre (S, B, 4H), c_prev, c_seq, dy (S, B, H), whT (4H, H),
 // gln/bln (4H,), dhn/dcn (B, H) in; dgate, dgpre (S, B, 4H), dh0/dc0 (B, H)
-// out.  gh_pre is f32 for either type; the rest as V2.
+// out.  gh_pre is f32 for either type; all else of one type (f32 or bf16),
+// contiguous, H % 4 == 0.  Returns the launch status (cudaSuccess == 0).
 int lstm_layer_bwd_v1_f32(const float* gx, const float* ghp,
                           const float* c_prev, const float* c_seq,
                           const float* dy, const float* whT, const float* gln,

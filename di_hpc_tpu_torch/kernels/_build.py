@@ -40,7 +40,10 @@ _SIGNATURES = {
     "lstm_layer_rows_per_cta": (_i, []),
     "lstm_layer_bwd_v2_f32": (_i, [_p] * 20 + [_i] * 4 + [_p]),
     "lstm_layer_bwd_v2_bf16": (_i, [_p] * 20 + [_i] * 4 + [_p]),
-    "lstm_layer_bwd_v2_smem_bytes": (ctypes.c_longlong, [_i]),
+    "lstm_layer_bwd_v2_smem_bytes": (ctypes.c_longlong, [_i, _i]),
+    "lstm_layer_bwd_v2_rows_per_group": (_i, [_i, _i]),
+    "lstm_layer_bwd_v2_cluster_size": (_i, [_i]),
+    "lstm_layer_bwd_v2_max_active_clusters": (_i, [_i, _i, _i]),
     "lstm_layer_bwd_v1_f32": (_i, [_p] * 14 + [_i] * 4 + [_p]),
     "lstm_layer_bwd_v1_bf16": (_i, [_p] * 14 + [_i] * 4 + [_p]),
     "lstm_layer_bwd_v1_smem_bytes": (ctypes.c_longlong, [_i]),

@@ -1,6 +1,6 @@
 """Whole-layer LN-LSTM: the hand-written Hopper kernels (csrc/lstm_layer.cu,
-csrc/lstm_layer_bwd.cu), their plain PyTorch versions, and the
-torch.autograd.Function that joins forward and backward.
+csrc/lstm_layer_bwd_v2.cu, csrc/lstm_layer_bwd.cu), their plain PyTorch
+versions, and the torch.autograd.Function that joins forward and backward.
 
 Counterpart of di_hpc_tpu/pallas_kernels/lstm_cell.py, same arguments and
 the same functions:
@@ -49,7 +49,7 @@ __all__ = [
     "lstm_layer_fused", "lstm_layer_plain", "lstm_layer_stash",
     "lstm_layer_stash_plain", "lstm_layer_bwd_v2", "lstm_layer_bwd_v2_plain",
     "lstm_layer_bwd_v1", "lstm_layer_bwd_v1_plain",
-    "lstm_layer_bwd_v1_streams", "V2_MIN_BATCH",
+    "lstm_layer_bwd_v1_streams", "v2_launch_shape", "V2_MIN_BATCH",
 ]
 
 # The backward runs V2 from this batch size up, as lstm_cell.py:_bwd_fits_v2
@@ -378,8 +378,9 @@ def lstm_layer_bwd_v2(gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0,
     """The V2 backward (see lstm_layer_bwd_v2_plain for the function and
     its outputs).  CPU tensors run the plain version; CUDA tensors launch
     the kernel (float32 or bf16, all of one type, contiguous, H % 4 == 0)
-    or raise.  The kernel's per-CTA float32 parameter sums are reduced with
-    torch.sum in a fixed order."""
+    or raise.  The kernel runs one cluster of CTAs per group of rows
+    (`v2_launch_shape`); its per-group float32 parameter sums are reduced
+    with torch.sum in a fixed order."""
     names = ("gxp", "y", "c_seq", "dy", "wh", "glnx", "blnx", "gln", "bln",
              "bias", "h0", "c0", "dhn", "dcn")
     args = (gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn,
@@ -400,12 +401,12 @@ def lstm_layer_bwd_v2(gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0,
     if H % 4:
         raise ValueError(f"{name}: H must be a multiple of 4; got {H}")
     lib = _build.library().cdll
-    _check_smem(name, lib.lstm_layer_bwd_v2_smem_bytes(H), H, gxp.device)
+    _check_smem(name, lib.lstm_layer_bwd_v2_smem_bytes(H, gxp.element_size()),
+                H, gxp.device)
 
-    rows = lib.lstm_layer_rows_per_cta()
+    groups = v2_launch_shape(B, H, gxp.element_size())["groups"]
     dgxp, dg_pre = torch.empty_like(gxp), torch.empty_like(gxp)
-    part = torch.empty(((B + rows - 1) // rows, 3, G), dtype=torch.float32,
-                       device=gxp.device)
+    part = torch.empty((groups, 3, G), dtype=torch.float32, device=gxp.device)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(h0)
     _launch(name, _entry(lib, "lstm_layer_bwd_v2", dt), gxp.device, gxp, y,
             c_seq, dy, wh, wh.t().contiguous(), glnx, blnx, gln, bln, bias,
@@ -414,6 +415,19 @@ def lstm_layer_bwd_v2(gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0,
     _count(lstm_layer_bwd_v2, dt)
     dgln, dglnx, dsum = part.sum(dim=0)
     return dgxp, dg_pre, dgln, dglnx, dsum, dh0, dc0
+
+
+def v2_launch_shape(B: int, H: int, item: int) -> dict:
+    """The V2 kernel's launch at batch B and hidden size H with `item`-byte
+    streams (4: float32, 2: bf16), as the library reckons it: batch rows
+    per group, CTAs per cluster (one cluster per group; each CTA owns
+    H / cluster units), groups, and the grid in CTAs."""
+    lib = _build.library().cdll
+    rows = lib.lstm_layer_bwd_v2_rows_per_group(H, item)
+    cluster = lib.lstm_layer_bwd_v2_cluster_size(H)
+    groups = (B + rows - 1) // rows
+    return {"rows_per_group": rows, "cluster": cluster, "groups": groups,
+            "grid": groups * cluster}
 
 
 lstm_layer_bwd_v2.launches = 0

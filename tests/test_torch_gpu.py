@@ -28,6 +28,7 @@ import torch
 
 import chip_smoke
 from di_hpc_tpu_torch import kernels, models, network, ops
+from di_hpc_tpu_torch.kernels import _build
 
 RTOL, ATOL = 1e-4, 1e-4
 CLIPS = (0.99, 0.95, 1.0, 0.9, 1.2)   # gamma, lambda, rho, c, pg
@@ -199,9 +200,9 @@ def _v1_args(v2_args, norm):
     return gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn
 
 
-# B = 13 and 17 leave a ragged last block of the 8-row CTAs; H = 96 is no
-# power of two; norm=False drops both LNs; the last case is the train
-# step's width (S = T+1 = 33, B = 256 for V2, 32 for V1).
+# B = 13 and 17 leave a ragged last block (V1's 8-row CTAs, V2's 24-row
+# clusters); H = 96 is no power of two; norm=False drops both LNs; the last
+# case is the train step's width (S = T+1 = 33, B = 256 for V2, 32 for V1).
 @pytest.mark.parametrize("S,B,H,norm", [(9, 13, 128, True), (5, 17, 96, False),
                                         (33, 0, 512, True)])
 @pytest.mark.parametrize("variant", ["v2", "v1"])
@@ -233,12 +234,95 @@ def test_lstm_bwd_kernels_match_plain(cuda, variant, S, B, H, norm):
 
 
 def test_lstm_bwd_v2_is_bitwise_repeatable(cuda):
-    """Per-CTA partial sums reduced by torch.sum, no float atomics."""
+    """Per-group partial sums reduced by torch.sum, DSM sums in rank order,
+    no float atomics."""
     args = _bwd_inputs(14, 9, 88, 128, cuda)
     with torch.no_grad():
         first = kernels.lstm_layer_bwd_v2(*args)
         second = kernels.lstm_layer_bwd_v2(*args)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# V2's row groups and clusters: B = 64 is the smallest batch the backward
+# routes to V2 and B = 200 another; both leave a partial last group of rows
+# (groups of 24).  The other widths take each other cluster size and both
+# row-group sizes: H = 48 a cluster of 6 CTAs of 8 units, whose 32-column
+# slices are no multiple of the 16-row MMA tile; H = 56 a cluster of 7;
+# H = 200 a cluster of 5 with 40 units each; H = 36 (6 CTAs of 6 units) and
+# H = 524 (4 of 131) units that are no multiple of 4, so their pieces move
+# one element at a time, and bf16 Wh^T rows (H % 8 != 0) that are read
+# element-wise; H = 524 and, in f32, H = 544 (8 CTAs) groups of 8 rows,
+# since 24 rows do not fit in shared memory there.
+@pytest.mark.parametrize("S,B,H", [(9, 64, 512), (9, 200, 512), (5, 40, 48),
+                                   (5, 30, 56), (5, 64, 200), (5, 17, 36),
+                                   (3, 64, 524), (3, 64, 544)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_v2_groups_and_clusters_match_plain(cuda, dtype, S, B, H):
+    wh_scale = 1 / np.sqrt(H) if H >= 200 else 0.1
+    if dtype == torch.float32:
+        args = _bwd_inputs(42, S, B, H, cuda, wh_scale)
+    else:
+        args = _bwd_inputs_bf16(42, S, B, H, cuda, wh_scale)
+    with torch.no_grad():
+        before = kernels.lstm_layer_bwd_v2.launches + \
+            kernels.lstm_layer_bwd_v2.launches_bf16
+        got = kernels.lstm_layer_bwd_v2(*args)
+        again = kernels.lstm_layer_bwd_v2(*args)
+        torch.cuda.synchronize()
+        want = kernels.lstm_layer_bwd_v2_plain(*args)
+    assert kernels.lstm_layer_bwd_v2.launches + \
+        kernels.lstm_layer_bwd_v2.launches_bf16 == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if dtype == torch.bfloat16:
+        _close_bf16(kernels.lstm_layer_bwd_v2_plain, args, got, want, "v2")
+        return
+    for i, (g, w) in enumerate(zip(got, want)):
+        # As in test_lstm_bwd_kernels_match_plain.
+        atol = ATOL + 1e-5 * float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=atol,
+                                   msg=f"output {i}")
+
+
+def test_lstm_bwd_v2_takes_every_width_up_to_580(cuda):
+    """The 8-row CTAs V2 had before its cluster split took every H % 4 == 0
+    up to 580 (400*H + 256 bytes of shared memory); the cluster kernel fits
+    each of them in both stream types."""
+    lib = _build.library().cdll
+    props = torch.cuda.get_device_properties(cuda)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    for item in (4, 2):
+        for H in range(4, 581, 4):
+            shape = kernels.v2_launch_shape(64, H, item)
+            assert H % shape["cluster"] == 0 and shape["cluster"] >= 4, H
+            assert lib.lstm_layer_bwd_v2_smem_bytes(H, item) <= limit, \
+                (H, item)
+
+
+def test_lstm_bwd_v2_raises_on_what_it_cannot_take(cuda):
+    """On CUDA tensors the V2 wrapper launches its kernel or raises; it
+    never returns the plain version's result."""
+    v2 = kernels.lstm_layer_bwd_v2
+    before = (v2.launches, v2.launches_bf16)
+    args = list(_bwd_inputs(43, 3, 8, 32, cuda))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        v2(*[a.double() for a in args])
+    strided = torch.cat([args[0], args[0]], dim=-1)[..., :args[0].shape[-1]]
+    with pytest.raises(ValueError, match="must be contiguous"):
+        v2(strided, *args[1:])
+    with pytest.raises(ValueError, match="all inputs must lie"):
+        v2(*args[:4], args[4].cpu(), *args[5:])
+    with pytest.raises(ValueError, match=r"dy must be \(3, 8, 32\)"):
+        v2(*args[:3], args[3][:, :4].contiguous(), *args[4:])
+    odd = _bwd_inputs(44, 2, 8, 30, cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        v2(*odd)
+    H = 4096
+    big = [torch.zeros(s, device=cuda) for s in
+           [(1, 1, 4 * H)] + [(1, 1, H)] * 3 + [(H, 4 * H)] + [(4 * H,)] * 5
+           + [(1, H)] * 4]
+    with pytest.raises(ValueError, match="shared memory"):
+        v2(*big)
+    assert (v2.launches, v2.launches_bf16) == before
 
 
 def _layer_loss(y, hn, cn):
