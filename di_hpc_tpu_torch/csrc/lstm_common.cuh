@@ -1,11 +1,13 @@
-// Device code shared by the LN-LSTM layer's forward kernel (lstm_layer.cu)
-// and its backward kernels (lstm_layer_bwd.cu, lstm_layer_bwd_v2.cu).
+// Device code shared by the LN-LSTM layer's forward kernels
+// (lstm_layer_cluster.cu, and lstm_layer.cu for H % 4 != 0) and its backward
+// kernels (lstm_layer_bwd.cu, lstm_layer_bwd_v2.cu).
 //
 // LayerNorm statistics take lstm_cell.py:_ln_stats's one-pass form,
-// variance clamped at 0.  V1 multiplies with the forward's own product code
-// (matmul_rows); V2 uses only the element helpers here and recomputes
-// h @ Wh on the tensor cores, so its gh_pre differs from the forward's by
-// float32 rounding (3xTF32) or by summation order (bf16).
+// variance clamped at 0.  V1 and the 8-row forward multiply with
+// matmul_rows; the cluster kernels use only the element helpers here and
+// run their products on the tensor cores (lstm_mma.cuh), so V2's gh_pre
+// differs from the forward's by float32 rounding (3xTF32) or by summation
+// order (bf16).
 //
 // Stream types.  Every kernel is a template on the element type T of its
 // streams and weights, float or __nv_bfloat16, as the TPU kernels take f32

@@ -1,4 +1,5 @@
-// LN-LSTM layer forward with the whole time loop inside one kernel launch.
+// LN-LSTM layer forward with the whole time loop inside one kernel launch,
+// one CTA per 8 batch rows: kernel 1's route for H % 4 != 0.
 //
 // Replaces di_hpc_tpu/pallas_kernels/lstm_cell.py:_layer_kernel, with f32
 // or bf16 streams and its stash mode: given c_seq, the kernel also writes the
@@ -26,24 +27,23 @@
 //
 // What bounds it on an H100: the h @ Wh product, 2*S*B*H*4H f32 operations,
 // runs on the FP32 FMA pipes (67 TFLOP/s for the whole card, no tensor
-// cores in this version), while HBM traffic is only the gxp/y streams.  At
-// S=33, B=256, H=512 that is 17.7 GFLOP against ~93 MB: operations bound.
-// With bf16 streams the kernel does the same f32 FMAs and moves half the
-// bytes, the per-step L2 stream of Wh included; the least time the card
-// needs for that bf16 work is at its bf16 tensor-core rate (989 TFLOP/s),
-// which this version does not use.
+// cores here), while HBM traffic is only the gxp/y streams: operations
+// bound.  With bf16 streams it does the same f32 FMAs and moves half the
+// bytes.
 //
 // Design.  Batch rows are independent and only time is sequential, so one
-// CTA owns kRows rows and runs the whole S-step loop; the loop takes the
-// place of the TPU's sequential grid axis and nothing crosses CTAs.  Wh (4.2
-// MB at H=512) does not fit in shared memory, so every CTA streams it from
-// L2 once per step in float4 column strips; h stays in shared memory in a
-// k-major (H, kRows) layout so one k step is two broadcast float4 loads and
-// kRows*4 FMAs per thread (lstm_common.cuh:matmul_rows).  The (kRows, 4H)
-// gate tile and the gxp_t rows stay in shared memory for the LayerNorm and
-// the gate math.  kRows trades CTAs in flight against L2 traffic for Wh
-// (each CTA reads all of Wh every step); splitting Wh across a thread-block
-// cluster and moving the product to tensor cores are later work.
+// CTA owns kRows rows and runs the whole S-step loop; nothing crosses CTAs.
+// Wh (4.2 MB at H=512) does not fit in shared memory, so every CTA streams
+// it from L2 once per step in float4 column strips; h stays in shared
+// memory in a k-major (H, kRows) layout so one k step is two broadcast
+// float4 loads and kRows*4 FMAs per thread (lstm_common.cuh:matmul_rows).
+// The (kRows, 4H) gate tile and the gxp_t rows stay in shared memory for the
+// LayerNorm and the gate math.
+//
+// Route.  This is kernel 1's route for H % 4 != 0 only: every other width
+// runs lstm_layer_cluster.cu, whose C entry points (lstm_layer_fwd_f32 and
+// _bf16) send these widths here, by shape.  It takes any H whose plan,
+// 320*H + 128 bytes, fits a CTA (H <= 726).
 
 #include "lstm_common.cuh"
 
@@ -194,30 +194,28 @@ int launch_fwd(const T* gxp, const T* wh, const T* glnx, const T* blnx,
 extern "C" {
 
 // Dynamic shared memory one CTA needs at hidden size H, in bytes.
-long long lstm_layer_smem_bytes(int H) {
+long long lstm_layer_fwd8_smem_bytes(int H) {
   return (long long)(smem_floats(H) * sizeof(float));
 }
 
-int lstm_layer_rows_per_cta(void) { return kRows; }
-
-// gxp (S, B, 4H), wh (H, 4H), the five (4H,) vectors, h0/c0 (B, H) in;
-// y (S, B, H), c_seq (S, B, H) or nullptr, hn/cn (B, H) out.  All of one
-// type (f32 or bf16), contiguous, gxp and wh 16-byte aligned.  Returns the
-// launch status (cudaSuccess == 0).
-int lstm_layer_fwd_f32(const float* gxp, const float* wh, const float* glnx,
-                       const float* blnx, const float* gln, const float* bln,
-                       const float* bias, const float* h0, const float* c0,
-                       float* y, float* c_seq, float* hn, float* cn, int S,
-                       int B, int H, int norm, void* stream) {
+// The arguments of lstm_layer_fwd_f32 / _bf16 (lstm_layer_cluster.cu),
+// which call these for H % 4 != 0: gxp (S, B, 4H), wh (H, 4H), the five
+// (4H,) vectors, h0/c0 (B, H) in; y (S, B, H), c_seq (S, B, H) or nullptr,
+// hn/cn (B, H) out.  Returns the launch status (cudaSuccess == 0).
+int lstm_layer_fwd8_f32(const float* gxp, const float* wh, const float* glnx,
+                        const float* blnx, const float* gln, const float* bln,
+                        const float* bias, const float* h0, const float* c0,
+                        float* y, float* c_seq, float* hn, float* cn, int S,
+                        int B, int H, int norm, void* stream) {
   return launch_fwd(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, y, c_seq,
                     hn, cn, S, B, H, norm, stream);
 }
 
-int lstm_layer_fwd_bf16(const bf16* gxp, const bf16* wh, const bf16* glnx,
-                        const bf16* blnx, const bf16* gln, const bf16* bln,
-                        const bf16* bias, const bf16* h0, const bf16* c0,
-                        bf16* y, bf16* c_seq, bf16* hn, bf16* cn, int S,
-                        int B, int H, int norm, void* stream) {
+int lstm_layer_fwd8_bf16(const bf16* gxp, const bf16* wh, const bf16* glnx,
+                         const bf16* blnx, const bf16* gln, const bf16* bln,
+                         const bf16* bias, const bf16* h0, const bf16* c0,
+                         bf16* y, bf16* c_seq, bf16* hn, bf16* cn, int S,
+                         int B, int H, int norm, void* stream) {
   return launch_fwd(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, y, c_seq,
                     hn, cn, S, B, H, norm, stream);
 }

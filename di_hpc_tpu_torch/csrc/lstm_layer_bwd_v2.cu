@@ -34,13 +34,14 @@
 //   cudaOccupancyMaxActiveClusters), so B = 256 in groups of 16 would need
 //   a second wave for its 16th cluster; in groups of 24 it is 11 clusters,
 //   88 CTAs, one wave, and fewer groups stream Wh fewer times.
-// - Other widths (v2_cluster, v2_rows): C is the largest size up to 8 whose
-//   U is a multiple of 4, so that units, gate columns and dh partials move
-//   in 16-byte pieces, if that size is at least 4; else the largest divisor
-//   of H up to 8 (at least 4, as H % 4 == 0), and the pieces go one
-//   element at a time.  Where 24 rows do not fit a CTA's shared memory (H
-//   above about 520 in f32), a cluster owns kSmallGroupRows = 8; with C >=
-//   4 that fits every H up to about 950 (f32).
+// - Other widths (lstm_mma.cuh:cluster_size, v2_rows): C is the largest
+//   size up to 8 whose U is a multiple of 4, so that units, gate columns
+//   and dh partials move in 16-byte pieces, if that size is at least 4;
+//   else the largest divisor of H up to 8 (at least 4, as H % 4 == 0), and
+//   the pieces go one element at a time.  Where 24 rows do not fit a CTA's
+//   shared memory (H above about 520 in f32), a cluster owns
+//   kSmallGroupRows = 8; with C >= 4 that fits every H up to about 950
+//   (f32).
 // - Per step, with every cross-CTA sum taken over ranks 0..C-1 in rank
 //   order through distributed shared memory (cluster.map_shared_rank):
 //     A  h_{t-1} (R x H, every CTA the full width), the raw gxp of the
@@ -65,21 +66,13 @@
 //   is rewritten only after the next sync, which every peer reaches only
 //   after its reads of that buffer.  A last sync keeps every CTA's shared
 //   memory alive until its peers have read the final partials.
-// - The products use mma.sync in the swap-AB form: the gate columns (or the
-//   units) are the M = 16 side, the R batch rows R/8 n = 8 tiles that reuse
-//   each A fragment.  A (Wh^T rows for B, Wh rows for G) is read from L2
-//   straight into a ring of registers, 16 bytes a thread per piece, chunks
-//   ahead of their use; B (h, or dg_pre) is a k-contiguous tile in shared
-//   memory whose rows are padded so that a quarter-warp's 16-byte loads hit
-//   distinct banks.  Within each 16-byte piece the k order is permuted the
-//   same way on both sides (a sum over k does not depend on its order), so
-//   every fragment is one 16-byte load.
-//   bf16 streams: m16n8k16 bf16 with f32 accumulation -- products of bf16
-//   values are exact in f32 and the sums are f32, the TPU's
-//   preferred_element_type=f32 product.  f32 streams: 3xTF32 on m16n8k8,
-//   x = big + small with big = rna_tf32(x), small = rna_tf32(x - big), and
-//   big*big + big*small + small*big accumulated in f32, which keeps f32
-//   accuracy (single-pass TF32 would not).
+// - The products use mma.sync in the swap-AB form (lstm_mma.cuh:warp_gemm):
+//   the gate columns (or the units) are the M = 16 side, the R batch rows
+//   R/8 n = 8 tiles that reuse each A fragment.  A (Wh^T rows for B, Wh
+//   rows for G) is read from L2 straight into a ring of registers; B (h, or
+//   dg_pre) is a padded k-contiguous tile in shared memory.  bf16 streams
+//   run m16n8k16 bf16 with f32 accumulation, f32 streams 3xTF32 on
+//   m16n8k8, which keeps f32 accuracy.
 // - The parameter sums stay in shared memory and are written once as this
 //   CTA's columns of a (row groups, 3, 4H) f32 partial, which the caller
 //   reduces with torch.sum in a fixed order: no float atomics, so repeated
@@ -93,9 +86,7 @@
 // - Tile edges are masked: H, NC and U need not be multiples of the MMA
 //   tile (A pieces past the edge load zeros; the B tiles are zero-padded).
 
-#include <cooperative_groups.h>
-
-#include "lstm_common.cuh"
+#include "lstm_mma.cuh"
 
 namespace {
 
@@ -104,37 +95,8 @@ using namespace lstm;
 
 constexpr int kGroupRows = 24;              // batch rows per cluster
 constexpr int kSmallGroupRows = 8;          // where 24 rows do not fit
-constexpr int kV2Threads = 512;
-constexpr int kV2Warps = kV2Threads / 32;
 static_assert(kGroupRows % 8 == 0 && kSmallGroupRows % 8 == 0,
               "the rows are whole n = 8 MMA tiles");
-
-constexpr int kMaxCluster = 8;              // the portable maximum
-constexpr int kRingChunks = 2;              // A chunks in flight (MT = 1)
-constexpr size_t kSmemLimit = 232448;       // a CTA's most on sm_90
-
-// Cluster size at hidden size H (see Design).
-int v2_cluster(int H) {
-  for (int c = kMaxCluster; c >= 4; --c)
-    if (H % (4 * c) == 0) return c;
-  for (int c = kMaxCluster; c >= 4; --c)
-    if (H % c == 0) return c;
-  return 1;
-}
-
-// Elements per row of a B-operand tile of depth K: K rounded up to 128
-// bytes, plus 64, so that the two 8-lane halves of a quarter-warp's 16-byte
-// loads (rows g and g+1) fall in different banks.
-template <typename T>
-__host__ __device__ constexpr int operand_ld(int K) {
-  return (int)(((K * sizeof(T) + 127) / 128 * 128 + 64) / sizeof(T));
-}
-
-__host__ __device__ inline size_t take(size_t& at, size_t bytes) {
-  const size_t here = at;
-  at += (bytes + 15) / 16 * 16;
-  return here;
-}
 
 // Byte offsets of the shared-memory tiles of one CTA.
 template <typename T>
@@ -166,319 +128,10 @@ struct V2Smem {
   }
 };
 
-// ------------------------------------------------------------- MMA core --
-
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(unsigned bits, unsigned& big,
-                                           unsigned& small) {
-  const float x = __uint_as_float(bits);
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Raw bits of one element, for the element-wise edge loads.
-__device__ __forceinline__ unsigned raw_bits(const float* p) {
-  return __float_as_uint(__ldg(p));
-}
-__device__ __forceinline__ unsigned raw_bits(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned short*>(p));
-}
-
-// The A operand: element (m, k) of an M x K matrix in global memory.  With
-// kRowsMapped, row m lies at a + cmap[m]*ld and k is contiguous (Wh^T rows
-// of the own gate columns); otherwise row m lies at a + m*ld and k maps to
-// column cmap[k] (Wh rows restricted to the own columns).  `vec` says that
-// every 16-byte piece the MMA loop asks for is aligned and contiguous.
-template <typename T, bool kRowsMapped>
-struct AOperand {
-  const T* __restrict__ a;
-  const int* cmap;
-  int ld, M, K;
-  bool vec;
-
-  __device__ __forceinline__ const T* at(int m, int k) const {
-    return kRowsMapped ? a + (size_t)cmap[m] * ld + k
-                       : a + (size_t)m * ld + cmap[k];
-  }
-
-  // Element offsets of row m and of depth k (at(m, k) = a + row + depth),
-  // -1 past the edge.
-  __device__ __forceinline__ int row_off(int m) const {
-    return m >= M ? -1 : kRowsMapped ? cmap[m] * ld : m * ld;
-  }
-  __device__ __forceinline__ int depth_off(int k) const {
-    return k >= K ? -1 : kRowsMapped ? k : cmap[k];
-  }
-
-  // The 16-byte piece of row m at depth k..k+E-1 as four 32-bit words
-  // (E = 4 f32 or 8 bf16 elements); zero past the edges.  The MMA loop
-  // takes this path where `vec` does not hold, and else loads the piece
-  // with one 16-byte load from row_off and depth_off.
-  __device__ __forceinline__ void piece(int m, int k, unsigned (&w)[4]) const {
-    constexpr int E = 16 / sizeof(T);
-    w[0] = w[1] = w[2] = w[3] = 0u;
-    if (m >= M || k >= K) return;
-    if (vec) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(at(m, k)));
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-      return;
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      if (k + e < K) {
-        const unsigned bits = raw_bits(at(m, k + e));
-        if constexpr (sizeof(T) == 4) w[e] = bits;
-        else w[e / 2] |= bits << (16 * (e & 1));
-      }
-    }
-  }
-};
-
-// One 16-byte piece of a B tile row in shared memory as four words.
-template <typename T>
-__device__ __forceinline__ void b_piece(const T* p, unsigned (&w)[4]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-}
-
-// The MMAs of one chunk of depth KC = 4 pieces' worth (16 f32 or 32 bf16):
-// two k steps.  A thread's piece covers the physical depths tig*E..+E-1 of
-// the chunk; k step s reads its words 2s and 2s+1, which the fragments take
-// as the logical columns (tf32) tig and tig+4, or (bf16) the pairs 2tig,
-// 2tig+1 and 2tig+8, 2tig+9 -- on A and B alike, so the product is the sum
-// over all KC depths.
-template <int MT, int NT>
-__device__ __forceinline__ void mma_chunk(float (&acc)[MT][NT][4],
-                                          const unsigned (&a)[MT][2][4],
-                                          const unsigned (&b)[NT][4],
-                                          float) {
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    unsigned bb[NT][2], bs[NT][2];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      split_tf32(b[nt][2 * s], bb[nt][0], bs[nt][0]);
-      split_tf32(b[nt][2 * s + 1], bb[nt][1], bs[nt][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      unsigned ab[4], as[4];
-      split_tf32(a[i][0][2 * s], ab[0], as[0]);       // row g,   col tig
-      split_tf32(a[i][1][2 * s], ab[1], as[1]);       // row g+8, col tig
-      split_tf32(a[i][0][2 * s + 1], ab[2], as[2]);   // row g,   col tig+4
-      split_tf32(a[i][1][2 * s + 1], ab[3], as[3]);   // row g+8, col tig+4
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        mma_tf32(acc[i][nt], as, bb[nt]);
-        mma_tf32(acc[i][nt], ab, bs[nt]);
-        mma_tf32(acc[i][nt], ab, bb[nt]);
-      }
-    }
-  }
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void mma_chunk(float (&acc)[MT][NT][4],
-                                          const unsigned (&a)[MT][2][4],
-                                          const unsigned (&b)[NT][4],
-                                          bf16) {
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const unsigned af[4] = {a[i][0][2 * s], a[i][1][2 * s],
-                              a[i][0][2 * s + 1], a[i][1][2 * s + 1]};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const unsigned bf[2] = {b[nt][2 * s], b[nt][2 * s + 1]};
-        mma_bf16(acc[i][nt], af, bf);
-      }
-    }
-  }
-}
-
-// out[m*out_m + n*out_n] = sum_k A(m, k) * bs[n*ldb + k] for m < A.M and the
-// 8*NT rows n, K = A.K (bs zero from K up to its padded width).  Each
-// warp takes MT m-tiles of 16 at a time.  With KS = 2 the warps form two
-// halves that split K: the first half's sums go to `out`, the second's to
-// `out2` (the caller adds the two), so each warp multiplies MT m-tiles by
-// every B fragment it loads and splits.  The A pieces stream from L2
-// through a ring of kRingChunks / MT chunks in registers: a slot is refilled
-// with the chunk that many ahead as soon as its chunk is multiplied, so
-// that many chunks' loads are always in flight.
-template <typename T, int NT, int MT, int KS, bool kRowsMapped>
-__device__ __forceinline__ void warp_gemm(const AOperand<T, kRowsMapped>& A,
-                                          const T* bs, int ldb, float* out,
-                                          float* out2, int out_m, int out_n) {
-  constexpr int E = 16 / sizeof(T);
-  constexpr int KC = 4 * E;
-  constexpr int D = kRingChunks / MT;
-  constexpr int kSlots = kV2Warps / KS;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int slot = warp % kSlots, half = warp / kSlots;
-  const int nmt = (A.M + 15) / 16;
-  const int nchunks = (A.K + KC - 1) / KC;
-  const int per_half = (nchunks + KS - 1) / KS;
-  const int c_begin = half * per_half;
-  const int c_end = min(nchunks, c_begin + per_half);
-  float* dst_out = half == 0 ? out : out2;
-
-  for (int base = slot * MT; base < nmt; base += kSlots * MT) {
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        acc[i][nt][0] = acc[i][nt][1] = acc[i][nt][2] = acc[i][nt][3] = 0.f;
-
-    int roff[MT][2];                  // this thread's rows, -1 past M
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        roff[i][h] = A.row_off((base + i) * 16 + g + 8 * h);
-    unsigned ring[D][MT][2][4];
-    auto load = [&](int chunk, unsigned (&dst)[MT][2][4]) {
-      const int k = chunk * KC + tig * E;
-      if (A.vec) {
-        const int ko = A.depth_off(k);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            uint4 v = make_uint4(0u, 0u, 0u, 0u);
-            if (ko >= 0 && roff[i][h] >= 0)
-              v = __ldg(reinterpret_cast<const uint4*>(
-                  A.a + (size_t)roff[i][h] + ko));
-            dst[i][h][0] = v.x;
-            dst[i][h][1] = v.y;
-            dst[i][h][2] = v.z;
-            dst[i][h][3] = v.w;
-          }
-        }
-        return;
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int m = (base + i) * 16 + g;
-        A.piece(m, k, dst[i][0]);
-        A.piece(m + 8, k, dst[i][1]);
-      }
-    };
-#pragma unroll
-    for (int d = 0; d < D; ++d) load(c_begin + d, ring[d]);
-    for (int c0 = c_begin; c0 < c_end; c0 += D) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const int c = c0 + d;
-        if (c < c_end) {
-          unsigned b[NT][4];
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            b_piece(bs + (nt * 8 + g) * ldb + c * KC + tig * E, b[nt]);
-          mma_chunk<MT, NT>(acc, ring[d], b, T());
-          if (c + D < c_end) load(c + D, ring[d]);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int m = (base + i) * 16 + g, n = nt * 8 + 2 * tig;
-        if (m < A.M) {
-          dst_out[m * out_m + n * out_n] = acc[i][nt][0];
-          dst_out[m * out_m + (n + 1) * out_n] = acc[i][nt][1];
-        }
-        if (m + 8 < A.M) {
-          dst_out[(m + 8) * out_m + n * out_n] = acc[i][nt][2];
-          dst_out[(m + 8) * out_m + (n + 1) * out_n] = acc[i][nt][3];
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void add_to(float& s, float v) { s += v; }
-__device__ __forceinline__ void add_to(float4& s, const float4& v) {
-  s.x += v.x;
-  s.y += v.y;
-  s.z += v.z;
-  s.w += v.w;
-}
-
-// The sum over ranks 0..C-1, in rank order, of the V (float or float4) at
-// `p`'s offset in each CTA of the cluster.  All C loads are issued before
-// the first add, so their latencies overlap.
-template <typename V>
-__device__ __forceinline__ V cluster_sum(const cg::cluster_group& cluster,
-                                         float* p, int C) {
-  V v[kMaxCluster];
-#pragma unroll
-  for (int r = 0; r < kMaxCluster; ++r)
-    v[r] = r < C ? *reinterpret_cast<const V*>(cluster.map_shared_rank(p, r))
-                 : V{};
-  V s{};
-#pragma unroll
-  for (int r = 0; r < kMaxCluster; ++r)
-    if (r < C) add_to(s, v[r]);
-  return s;
-}
-
-// Four adjacent elements of T copied from global to shared memory with
-// cp.async (16 bytes for f32, 8 for bf16), asynchronously: the copy lands
-// while the CTA works on, and cp_async_wait_all() waits for every copy this
-// thread issued.  With valid = false it writes zeros and reads nothing.
-template <typename T>
-__device__ __forceinline__ void cp_async4(T* dst, const T* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (sizeof(T) == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-                 "l"(src), "r"(valid ? 8 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // ----------------------------------------------------------- the kernel --
 
 template <typename T, int R>
-__global__ void __launch_bounds__(kV2Threads, 1)
+__global__ void __launch_bounds__(kMmaThreads, 1)
 lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
                          const T* __restrict__ y,
                          const T* __restrict__ c_seq,
@@ -534,25 +187,25 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
   {
     float4* z = reinterpret_cast<float4*>(base + L.h);
     const int n16 = (int)((L.x - L.h) / 16);
-    for (int i = tid; i < n16; i += kV2Threads)
+    for (int i = tid; i < n16; i += kMmaThreads)
       z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int kk = tid; kk < NC; kk += kV2Threads)
+  for (int kk = tid; kk < NC; kk += kMmaThreads)
     cmap_s[kk] = (kk / U) * H + j0 + kk % U;
-  for (int i = tid; i < R * U; i += kV2Threads) {
+  for (int i = tid; i < R * U; i += kMmaThreads) {
     const int b = i / U, row = row0 + b;
     const size_t o = (size_t)row * H + j0 + (i - b * U);
     dh_s[i] = row < B ? to_f(dhn[o]) : 0.f;
     dc_s[i] = row < B ? to_f(dcn[o]) : 0.f;
   }
-  for (int i = tid; i < 3 * NC; i += kV2Threads) sum_s[i] = 0.f;
+  for (int i = tid; i < 3 * NC; i += kMmaThreads) sum_s[i] = 0.f;
   __syncthreads();
 
   const AOperand<T, true> a_gh{whT, cmap_s, H, NC, H, H % E == 0};
   // F's ranges of rows: as many as give every thread an item, within R and
   // within the scratch that dhp_s holds.
   const int parts =
-      max(1, min(min(kV2Threads / NC, R), R * L.ldp / (3 * NC)));
+      max(1, min(min(kMmaThreads / NC, R), R * L.ldp / (3 * NC)));
   const AOperand<T, false> a_dh{wh, cmap_s, G, H, NC, U % E == 0};
 
   // What step t reads from its inputs, fetched into shared memory with
@@ -563,7 +216,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
   auto fetch_h = [&](int t) {                   // h_{t-1}: free after B
     const T* hp = t > 0 ? y + (size_t)(t - 1) * B * H : h0;
     const int hq = H / 4;
-    for (int i = tid; i < R * hq; i += kV2Threads) {
+    for (int i = tid; i < R * hq; i += kMmaThreads) {
       const int b = i / hq, k = 4 * (i - b * hq), row = row0 + b;
       cp_async4(h_s + b * L.ldh + k, row < B ? hp + (size_t)row * H + k : hp,
                 row < B);
@@ -573,7 +226,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
     const T* cp_t = t > 0 ? c_seq + (size_t)(t - 1) * B * H : c0;
     const T* dy_t = dy + (size_t)t * B * H;
     if (!uvec) {
-      for (int i = tid; i < R * U; i += kV2Threads) {
+      for (int i = tid; i < R * U; i += kMmaThreads) {
         const int b = i / U, row = row0 + b;
         const size_t o = (size_t)row * H + j0 + (i - b * U);
         if (row < B) {
@@ -587,7 +240,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
       return;
     }
     const int uq = U / 4;
-    for (int i = tid; i < R * uq; i += kV2Threads) {
+    for (int i = tid; i < R * uq; i += kMmaThreads) {
       const int b = i / uq, u = 4 * (i - b * uq), row = row0 + b;
       const size_t o = row < B ? (size_t)row * H + j0 + u : 0;
       cp_async4(cp_s + b * U + u, cp_t + o, row < B);
@@ -597,7 +250,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
   auto fetch_x = [&](int t) {                   // gxp_t: after F
     const T* x_t = gxp + (size_t)t * B * G;
     if (!uvec) {
-      for (int i = tid; i < R * NC; i += kV2Threads) {
+      for (int i = tid; i < R * NC; i += kMmaThreads) {
         const int b = i / NC, row = row0 + b;
         if (row < B) x_s[i] = x_t[(size_t)row * G + cmap_s[i - b * NC]];
         else put(x_s + i, 0.f);
@@ -605,7 +258,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
       return;
     }
     const int xq = NC / 4;
-    for (int i = tid; i < R * xq; i += kV2Threads) {
+    for (int i = tid; i < R * xq; i += kMmaThreads) {
       const int b = i / xq, kk = 4 * (i - b * xq), row = row0 + b;
       cp_async4(x_s + b * NC + kk,
                 row < B ? x_t + (size_t)row * G + cmap_s[kk] : x_t, row < B);
@@ -634,7 +287,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
 
     // C. gh_pre = the two halves' sums; per-row partial LayerNorm sums
     //    over the own columns, then the cluster's statistics in rank order.
-    for (int b = warp; b < R; b += kV2Warps) {
+    for (int b = warp; b < R; b += kMmaWarps) {
       float sh = 0.f, sh2 = 0.f, sx = 0.f, sx2 = 0.f;
       for (int kk = lane; kk < NC; kk += 32) {
         const float g = gh_s[b * NC + kk] + dg_s[b * NC + kk];
@@ -668,7 +321,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
     __syncthreads();
 
     // D. Recompute the gates and run the cell backward of the own units.
-    for (int i = tid; i < R * U; i += kV2Threads) {
+    for (int i = tid; i < R * U; i += kMmaThreads) {
       const int b = i / U, u = i - b * U, j = j0 + u;
       const float* st = st_s + b * 8;
       float pre[4];
@@ -706,7 +359,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
     // E. LayerNorm-backward row means, m1 = mean(dgate*gamma) and m2 =
     //    mean(dgate*gamma*xhat) on both sides, exchanged as in C.
     if (norm) {
-      for (int b = warp; b < R; b += kV2Warps) {
+      for (int b = warp; b < R; b += kMmaWarps) {
         const float* st = st_s + b * 8;
         float s1 = 0.f, s2 = 0.f, s1x = 0.f, s2x = 0.f;
         for (int kk = lane; kk < NC; kk += 32) {
@@ -746,7 +399,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
     //    has one: dgxp_t and dg_pre_t out, dg_pre kept as the dh product's
     //    operand.  Each range's parameter sums go to scratch in dhp_s (free
     //    until G) and are added to the running sums in range order.
-    for (int item = tid; item < parts * NC; item += kV2Threads) {
+    for (int item = tid; item < parts * NC; item += kMmaThreads) {
       const int part = item / NC, kk = item - part * NC;
       const int col = cmap_s[kk];
       const float g_h = norm ? ldf(gln + col) : 1.f;
@@ -779,7 +432,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
       sc[2 * NC + kk] = a_s;
     }
     __syncthreads();
-    for (int kk = tid; kk < NC; kk += kV2Threads) {
+    for (int kk = tid; kk < NC; kk += kMmaThreads) {
       float a_h = 0.f, a_x = 0.f, a_s = 0.f;
       for (int part = 0; part < parts; ++part) {
         const float* sc = dhp_s + (size_t)part * 3 * NC;
@@ -803,7 +456,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
     cluster.sync();
     if (uvec) {
       const int uq = U / 4;
-      for (int i = tid; i < R * uq; i += kV2Threads) {
+      for (int i = tid; i < R * uq; i += kMmaThreads) {
         const int b = i / uq, u = 4 * (i - b * uq), row = row0 + b;
         const float4 d =
             cluster_sum<float4>(cluster, dhp_s + b * L.ldp + j0 + u, C);
@@ -819,7 +472,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
         }
       }
     } else {
-      for (int i = tid; i < R * U; i += kV2Threads) {
+      for (int i = tid; i < R * U; i += kMmaThreads) {
         const int b = i / U, u = i - b * U, row = row0 + b;
         const float d = cluster_sum<float>(cluster, dhp_s + b * L.ldp + j0 + u,
                                            C);
@@ -834,7 +487,7 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
   }
 
   float* out = part + (size_t)group * 3 * G;
-  for (int kk = tid; kk < NC; kk += kV2Threads) {
+  for (int kk = tid; kk < NC; kk += kMmaThreads) {
     const int col = cmap_s[kk];
     out[col] = sum_s[kk];
     out[G + col] = sum_s[NC + kk];
@@ -849,14 +502,14 @@ lstm_layer_bwd_v2_kernel(const T* __restrict__ gxp,
 // Batch rows per cluster at hidden size H (see Design).
 template <typename T>
 int v2_rows(int H) {
-  return V2Smem<T>(H, v2_cluster(H), kGroupRows).bytes <= kSmemLimit
+  return V2Smem<T>(H, cluster_size(H), kGroupRows).bytes <= kSmemLimit
              ? kGroupRows
              : kSmallGroupRows;
 }
 
 template <typename T>
 size_t v2_smem(int H) {
-  return V2Smem<T>(H, v2_cluster(H), v2_rows<T>(H)).bytes;
+  return V2Smem<T>(H, cluster_size(H), v2_rows<T>(H)).bytes;
 }
 
 template <typename T>
@@ -877,10 +530,10 @@ int prepare_v2(int H, V2Kernel<T>* kernel) {
 template <typename T>
 cudaLaunchConfig_t v2_config(int B, int H, void* stream,
                              cudaLaunchAttribute* attr) {
-  const int C = v2_cluster(H), R = v2_rows<T>(H);
+  const int C = cluster_size(H), R = v2_rows<T>(H);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((B + R - 1) / R * C);
-  cfg.blockDim = dim3(kV2Threads);
+  cfg.blockDim = dim3(kMmaThreads);
   cfg.dynamicSmemBytes = v2_smem<T>(H);
   cfg.stream = (cudaStream_t)stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -907,7 +560,7 @@ int launch_v2(const T* gxp, const T* y, const T* c_seq, const T* dy,
   err = (int)cudaLaunchKernelEx(&cfg, kernel, gxp, y, c_seq, dy, wh, whT,
                                 glnx, blnx, gln, bln, bias, h0, c0, dhn, dcn,
                                 dgxp, dgpre, part, dh0, dc0, S, B, H,
-                                v2_cluster(H), norm);
+                                cluster_size(H), norm);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
@@ -933,7 +586,7 @@ int lstm_layer_bwd_v2_rows_per_group(int H, int item) {
   return item == 2 ? v2_rows<bf16>(H) : v2_rows<float>(H);
 }
 
-int lstm_layer_bwd_v2_cluster_size(int H) { return v2_cluster(H); }
+int lstm_layer_bwd_v2_cluster_size(int H) { return cluster_size(H); }
 
 // Dynamic shared memory of one CTA at hidden size H for `item`-byte
 // streams.

@@ -22,6 +22,7 @@ from .linear_scan import (
 )
 from .lstm_cell import (
     V2_MIN_BATCH,
+    layer_launch_shape,
     lstm_layer_bwd_v1,
     lstm_layer_bwd_v1_plain,
     lstm_layer_bwd_v1_streams,

@@ -36,8 +36,12 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "lstm_layer_fwd_f32": (_i, [_p] * 13 + [_i] * 4 + [_p]),
     "lstm_layer_fwd_bf16": (_i, [_p] * 13 + [_i] * 4 + [_p]),
-    "lstm_layer_smem_bytes": (ctypes.c_longlong, [_i]),
-    "lstm_layer_rows_per_cta": (_i, []),
+    "lstm_layer_fwd_at_rows": (_i, [_i, _i] + [_p] * 13 + [_i] * 4 + [_p]),
+    "lstm_layer_smem_bytes": (ctypes.c_longlong, [_i, _i]),
+    "lstm_layer_fwd_smem_bytes": (ctypes.c_longlong, [_i, _i, _i]),
+    "lstm_layer_fwd_rows_per_group": (_i, [_i, _i, _i]),
+    "lstm_layer_fwd_cluster_size": (_i, [_i]),
+    "lstm_layer_fwd_max_active_clusters": (_i, [_i, _i, _i, _i]),
     "lstm_layer_bwd_v2_f32": (_i, [_p] * 20 + [_i] * 4 + [_p]),
     "lstm_layer_bwd_v2_bf16": (_i, [_p] * 20 + [_i] * 4 + [_p]),
     "lstm_layer_bwd_v2_smem_bytes": (ctypes.c_longlong, [_i, _i]),

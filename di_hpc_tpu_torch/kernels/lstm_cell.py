@@ -1,4 +1,5 @@
-"""Whole-layer LN-LSTM: the hand-written Hopper kernels (csrc/lstm_layer.cu,
+"""Whole-layer LN-LSTM: the hand-written Hopper kernels (the forward in
+csrc/lstm_layer_cluster.cu, with csrc/lstm_layer.cu for H % 4 != 0;
 csrc/lstm_layer_bwd_v2.cu, csrc/lstm_layer_bwd.cu), their plain PyTorch
 versions, and the torch.autograd.Function that joins forward and backward.
 
@@ -22,7 +23,10 @@ the same functions:
 The TPU kernels' dispatch gates (VMEM budgets, H % 128, S >= 8) are facts
 about the TPU and are not carried over: the CUDA kernels take any S >= 1 --
 S = 1 is the serving step -- and any H whose shared-memory plan fits one
-CTA (the backward kernels also need H % 4 == 0).
+CTA (the backward kernels also need H % 4 == 0).  The forward routes by
+shape (`layer_launch_shape`): H % 4 == 0 runs a thread-block cluster per
+group of rows with h @ Wh on the tensor cores, any other H a kernel with
+one CTA per 8 rows.
 
 Streams are float32 or bfloat16, as the TPU kernels take them: with bf16,
 gxp, Wh, the (4H,) vectors, the state and every stream are bf16 while the
@@ -49,7 +53,8 @@ __all__ = [
     "lstm_layer_fused", "lstm_layer_plain", "lstm_layer_stash",
     "lstm_layer_stash_plain", "lstm_layer_bwd_v2", "lstm_layer_bwd_v2_plain",
     "lstm_layer_bwd_v1", "lstm_layer_bwd_v1_plain",
-    "lstm_layer_bwd_v1_streams", "v2_launch_shape", "V2_MIN_BATCH",
+    "lstm_layer_bwd_v1_streams", "layer_launch_shape", "v2_launch_shape",
+    "V2_MIN_BATCH",
 ]
 
 # The backward runs V2 from this batch size up, as lstm_cell.py:_bwd_fits_v2
@@ -231,7 +236,10 @@ def _launch(name, fn, device, *args) -> None:
 
 
 def _lstm_layer_cuda(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, norm,
-                     stash):
+                     stash, rows=None):
+    """The forward kernel's launch.  `rows` (8, 16 or 24; H % 4 == 0 only)
+    overrides the cluster kernel's rows per group, to measure the
+    candidates; by default the library chooses (`layer_launch_shape`)."""
     name = "lstm_layer_fused"
     names = ("gxp", "wh", "glnx", "blnx", "gln", "bln", "bias", "h0", "c0")
     args = (gxp, wh, glnx, blnx, gln, bln, bias, h0, c0)
@@ -245,16 +253,44 @@ def _lstm_layer_cuda(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, norm,
                              zip(names[2:7], args[2:7])},
                           "h0": (h0, (B, H)), "c0": (c0, (B, H))})
     lib = _build.library().cdll
-    _check_smem(name, lib.lstm_layer_smem_bytes(H), H, gxp.device)
+    item = gxp.element_size()
+    _check_smem(name, lib.lstm_layer_smem_bytes(H, item), H, gxp.device)
 
     y = torch.empty((S, B, H), dtype=gxp.dtype, device=gxp.device)
     c_seq = torch.empty_like(y) if stash else None
     hn = torch.empty((B, H), dtype=gxp.dtype, device=gxp.device)
     cn = torch.empty_like(hn)
-    _launch(name, _entry(lib, "lstm_layer_fwd", dt), gxp.device, *args, y,
-            c_seq if stash else None, hn, cn, S, B, H, int(bool(norm)))
+    outs = (y, c_seq, hn, cn, S, B, H, int(bool(norm)))
+    if rows is None:
+        _launch(name, _entry(lib, "lstm_layer_fwd", dt), gxp.device, *args,
+                *outs)
+    else:
+        _launch(name, lib.lstm_layer_fwd_at_rows, gxp.device, item, rows,
+                *args, *outs)
     _count(lstm_layer_fused, dt)
     return y, c_seq, hn, cn
+
+
+def layer_launch_shape(B: int, H: int, item: int, rows=None) -> dict:
+    """The forward kernel's launch at batch B and hidden size H with
+    `item`-byte streams (4: float32, 2: bf16), as the library reckons it:
+    the route ("cluster" for H % 4 == 0, else "rows8", one CTA per 8 rows),
+    CTAs per cluster (1 on the 8-row route), batch rows per group (`rows`
+    overrides the cluster route's choice), groups, the grid in CTAs, the
+    dynamic shared memory of one CTA, and how many clusters the card holds
+    at once (cudaOccupancyMaxActiveClusters; None on the 8-row route)."""
+    lib = _build.library().cdll
+    cluster = lib.lstm_layer_fwd_cluster_size(H)
+    if rows is None or not cluster:
+        rows = lib.lstm_layer_fwd_rows_per_group(B, H, item)
+    groups = (B + rows - 1) // rows
+    return {"route": "cluster" if cluster else "rows8",
+            "cluster": max(cluster, 1), "rows_per_group": rows,
+            "groups": groups, "grid": groups * max(cluster, 1),
+            "smem_bytes": lib.lstm_layer_fwd_smem_bytes(H, item, rows),
+            "max_active_clusters":
+                lib.lstm_layer_fwd_max_active_clusters(B, H, item, rows)
+                if cluster else None}
 
 
 # --------------------------------------------------------------- backward --

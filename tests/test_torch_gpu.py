@@ -62,8 +62,8 @@ def _vtrace_inputs(seed, T, B, dev):
     return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
 
 
-# B = 13 and 17 are not multiples of the kernel's 8-row block; S = 1 is the
-# serving step; H = 96 is no power of two; norm=False drops both LNs.
+# B = 13 and 17 leave a partial last group of rows; S = 1 is the serving
+# step; H = 96 is no power of two; norm=False drops both LNs.
 @pytest.mark.parametrize("S,B,H,norm", [(9, 13, 128, True), (1, 8, 128, True),
                                         (5, 17, 96, False)])
 def test_lstm_layer_kernel_matches_plain(cuda, S, B, H, norm):
@@ -90,6 +90,97 @@ def test_lstm_layer_stash_kernel_matches_plain(cuda):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=name)
     for g, p in zip((got[0], got[2], got[3]), plain):
         assert torch.equal(g, p)
+
+
+def _layer_inputs_at(seed, S, B, H, dev, dtype):
+    """_layer_inputs with Wh scaled to 1/sqrt(H) from H = 200 up, in
+    `dtype`."""
+    args = _layer_inputs(seed, S, B, H, dev)
+    if H >= 200:
+        args[1] = args[1] * (1 / np.sqrt(H) / 0.1)
+    return [a.to(dtype) for a in args]
+
+
+def _close_to_plain(args, got, want, norm):
+    """f32 at RTOL/ATOL; bf16 at chip_smoke.compare_bf16's bound."""
+    if args[0].dtype == torch.bfloat16:
+        _close_bf16(kernels.lstm_layer_stash_plain, args, got, want,
+                    "forward", norm=norm)
+        return
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL,
+                                   msg=f"output {i}")
+
+
+# The cluster kernel at each cluster size and row-group size: H = 36 (6
+# CTAs of 6 units, which are no multiple of 4, so they move one element at a
+# time), 48 (6 of 8), 56 (7 of 8), 200 (5 of 40), 524 (4 of 131) and 544 (8
+# of 68); B = 5 takes groups of 8 rows, 13 of 16, 17 and 30 of 24, each with
+# a partial last group; S = 1 is the serving step.
+@pytest.mark.parametrize("S,B,H,norm", [(9, 13, 36, True), (1, 17, 48, False),
+                                        (9, 5, 56, True), (9, 30, 200, True),
+                                        (1, 13, 524, False),
+                                        (9, 17, 544, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_layer_cluster_kernel_matches_plain(cuda, dtype, S, B, H, norm):
+    """Against the plain version; the stash mode's y, h_n and c_n bitwise
+    equal to the serving mode's, and a second run bitwise equal to the
+    first."""
+    args = _layer_inputs_at(45, S, B, H, cuda, dtype)
+    shape = kernels.layer_launch_shape(B, H, args[0].element_size())
+    assert shape["route"] == "cluster" and 4 <= shape["cluster"] <= 8
+    wrapper = kernels.lstm_layer_fused
+    with torch.no_grad():
+        before = wrapper.launches + wrapper.launches_bf16
+        got = kernels.lstm_layer_stash(*args, norm=norm)
+        fused = wrapper(*args, norm=norm)
+        again = wrapper(*args, norm=norm)
+        torch.cuda.synchronize()
+        want = kernels.lstm_layer_stash_plain(*args, norm=norm)
+    assert wrapper.launches + wrapper.launches_bf16 == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(fused, again))
+    for g, f in zip((got[0], got[2], got[3]), fused):
+        assert torch.equal(g, f)
+    _close_to_plain(args, got, want, norm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_layer_cluster_row_groups_give_the_same_bits(cuda, dtype):
+    """Groups of 8, 16 and 24 rows: a row's arithmetic does not depend on
+    where in its group it lies, so each gives the default's bits."""
+    args = _layer_inputs_at(46, 9, 40, 128, cuda, dtype)
+    with torch.no_grad():
+        default = kernels.lstm_layer_fused(*args)
+        for rows in (8, 16, 24):
+            y, _, hn, cn = kernels.lstm_cell._lstm_layer_cuda(
+                *args, norm=True, stash=False, rows=rows)
+            assert all(torch.equal(a, b) for a, b in
+                       zip((y, hn, cn), default)), rows
+        want = kernels.lstm_layer_stash_plain(*args)
+    _close_to_plain(args, kernels.lstm_layer_stash(*args), want, True)
+
+
+def test_lstm_layer_takes_every_width_up_to_726(cuda):
+    """The 8-row kernel before the cluster kernel took every H up to 726
+    (320*H + 128 bytes of shared memory): every such H still runs in both
+    stream types, H % 4 == 0 on the cluster route and any other H on the
+    8-row route, each against the plain version."""
+    props = torch.cuda.get_device_properties(cuda)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    for dtype in (torch.float32, torch.bfloat16):
+        item = torch.finfo(dtype).bits // 8
+        for H in range(1, 727):
+            shape = kernels.layer_launch_shape(3, H, item)
+            assert shape["route"] == ("cluster" if H % 4 == 0 else "rows8")
+            assert shape["smem_bytes"] <= limit, (H, item)
+            if H % 4 == 0:
+                assert H % shape["cluster"] == 0 and shape["cluster"] >= 4
+            args = _layer_inputs_at(47, 2, 3, H, cuda, dtype)
+            with torch.no_grad():
+                got = kernels.lstm_layer_stash(*args)
+                torch.cuda.synchronize()
+                want = kernels.lstm_layer_stash_plain(*args)
+            _close_to_plain(args, got, want, True)
 
 
 @pytest.mark.parametrize("T,B", [(36, 136), (37, 9)])

@@ -151,6 +151,45 @@ def test_non_cpu_inputs_go_to_the_kernel_checks_not_the_plain_version():
         kernels.lstm_layer_fused(*args)
 
 
+class _FakeLayerLibrary:
+    """The forward's launch-shape exports as the library reckons them at
+    H=512 (8 CTAs, 24 rows) and H=510 (the 8-row route), for the Python
+    side of kernels.layer_launch_shape without a card."""
+
+    def lstm_layer_fwd_cluster_size(self, H):
+        return 8 if H % 4 == 0 else 0
+
+    def lstm_layer_fwd_rows_per_group(self, B, H, item):
+        return 24 if H % 4 == 0 else 8
+
+    def lstm_layer_fwd_smem_bytes(self, H, item, rows):
+        return 1000 * rows + item
+
+    def lstm_layer_fwd_max_active_clusters(self, B, H, item, rows):
+        return 15
+
+
+@pytest.mark.parametrize("H,rows,want", [
+    (512, None, {"route": "cluster", "cluster": 8, "rows_per_group": 24,
+                 "groups": 11, "grid": 88, "smem_bytes": 24004,
+                 "max_active_clusters": 15}),
+    (512, 16, {"route": "cluster", "cluster": 8, "rows_per_group": 16,
+               "groups": 16, "grid": 128, "smem_bytes": 16004,
+               "max_active_clusters": 15}),
+    (510, 16, {"route": "rows8", "cluster": 1, "rows_per_group": 8,
+               "groups": 32, "grid": 32, "smem_bytes": 8004,
+               "max_active_clusters": None})])
+def test_layer_launch_shape_reads_the_route_from_the_library(monkeypatch, H,
+                                                             rows, want):
+    """B=256: groups and grid from the library's rows and cluster size; a
+    rows override applies to the cluster route only; the 8-row route has
+    no cluster and no cluster occupancy."""
+    from di_hpc_tpu_torch.kernels import _build
+    fake = type("Lib", (), {"cdll": _FakeLayerLibrary()})()
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    assert kernels.layer_launch_shape(256, H, 4, rows) == want
+
+
 def test_launch_counts_reset():
     kernels.vtrace_losses.launches = 3
     kernels.lstm_layer_bwd_v2.launches = 2
