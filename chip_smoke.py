@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (di_hpc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # no arguments; needs one CUDA card
-    python3 chip_smoke.py --digests    # only the LSTM backward kernels'
-                                       # output digests and ptxas lines
+    python3 chip_smoke.py --digests    # only the LSTM kernels' output
+                                       # digests and ptxas lines
+    python3 chip_smoke.py --profile    # only phase 9 (profile)
 
 Phases, each printing one JSON line (`{"phase": ...}`):
 
@@ -29,8 +30,11 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 cluster, the S=1, B=8 row 8 against 24.  The LSTM backward
                 kernels run at the train step's shapes (V2 at S=33, B=256,
                 V1 at S=33, B=32, H=512), V2 also at B=64 and at the ragged
-                B=200; V2 must be bitwise repeatable, and its rows print its
-                launch as kernel 1's do;
+                B=200, V1 also at the ragged B=40 and at the AlphaStar
+                core's S=17, B=8, H=128; every backward row must be bitwise
+                repeatable and prints its launch as kernel 1's do; V1's
+                B=32 and B=8 rows time its clusters of 8 against 16 CTAs
+                in turns;
                 the float32 LSTM rows are bounded at the 3xTF32 tensor-core
                 rate; the layer's autograd.Function (stash forward,
                 backward kernels) is held against autograd through the
@@ -40,8 +44,8 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 upgo_loss) run at T=1024, B=4096, at a ragged B and at T=1;
                 td_lambda_loss and upgo_loss must be bitwise repeatable.
                 The bf16 instantiations of the three LSTM kernels run at the
-                f32 rows' shapes (the forward's rows but H=510, V2 at S=33,
-                B=256, 64 and 200, V1 at S=33, B=32),
+                f32 rows' shapes (the forward's rows but H=510, the
+                backward's rows),
                 each against its plain bf16 version on the card, bounded at
                 the bf16 tensor-core peak and at bf16 bytes.
   4. slice   -- the forward and serving path at full width, through the
@@ -112,14 +116,17 @@ Phases, each printing one JSON line (`{"phase": ...}`):
   9. profile -- torch.profiler over one more run of each of the timed calls
                 (forward, serving loop, V-trace, train step, the three
                 on-policy calls, the UPGO loss, the AlphaStar train step and
-                the bf16 train step): device busy time, idle share of the
-                window and the top kernels by device time.
+                the bf16 train step) and of the f32 and bf16 train steps at
+                B=32: device busy time, idle share of the window and the
+                top kernels by device time.
 
 Then one `{"kernels": [...]}` line, the nvidia-smi line, and, last, the
 contract line `{"ok": true, "device": {...}}`.  With `--digests` it prints
-only the sha256 of the LSTM backward kernels' outputs at the rows' shapes
-(inputs from the plain forward) and their ptxas lines: run in two checkouts,
-they show whether a change left those kernels bitwise the same.  Any
+only the sha256 of the LSTM kernels' outputs at the rows' shapes (the
+backward's inputs from the plain forward) and their ptxas lines: run in two
+checkouts, they show whether a change left those kernels bitwise the same.
+With `--profile` it prints only phase 9's line, which runs in an older
+checkout too.  Any
 failure prints its phase
 with `"ok": false` and exits 1; no card (or no port beside this script)
 exits non-zero before any result.
@@ -701,11 +708,10 @@ def bf16_kernel_rows(rng, dev) -> dict:
                 rows_candidates(args, 24, 16)
     rows.update(fwd_extra_rows(dev, bf16))
 
-    S = 33
     extra = np.random.default_rng(SEED + 12)
-    for name, B in BWD_ROWS:
+    for name, S, B, H in BWD_ROWS:
         args = [a.to(bf16) for a in bwd_inputs(
-            rng if B in (256, 32) else extra, S, B, H, dev)]
+            rng if train_row(B, H) else extra, S, B, H, dev)]
         gxp, _, _, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn, dcn = \
             args
         y, c_seq, _, _ = kernels.lstm_layer_stash(gxp, wh, glnx, blnx, gln,
@@ -722,19 +728,16 @@ def bf16_kernel_rows(rng, dev) -> dict:
         torch.cuda.synchronize()
         want = plain(*args)
         row = {"shape": f"S={S},B={B},H={H}", **tol}
-        if name.endswith("v2"):
-            if not all(torch.equal(g, a) for g, a in zip(got, again)):
-                raise AssertionError(f"{name} bf16 B={B}: repeated runs "
-                                     f"differ")
-            row["bitwise_repeatable"] = True
-            row["launch"] = v2_launch_info(B, H, item=2)
-        row.update(compare_bf16(f"{name} bf16 B={B}", got, want,
+        bwd_launch_checks(name, row, got, again, B, H, item=2)
+        row.update(compare_bf16(f"{name} bf16 B={B} H={H}", got, want,
                                 spread_vs_cpu(plain, args, want)))
         row.update(kernel_ms(lambda: wrapper(*args), per_rep=3))
         row["plain_ms"] = cuda_ms(lambda: plain(*args), 3, warmup=1)
         row["bound_ms"], row["bound_by"] = bound_ms(
             *lstm_bwd_bound(name[-2:], S, B, H, item=2), BF16_FLOP_PER_S)
-        rows[bwd_row_key(name + " bf16", S, B)] = row
+        if name.endswith("v1") and B in (32, 8):
+            row["candidates"] = v1_candidates(args)
+        rows[bwd_row_key(name + " bf16", S, B, H)] = row
     return rows
 
 
@@ -754,17 +757,30 @@ def bwd_inputs(rng, S, B, H, dev):
 BWD_TOLERANCE = {"tolerance": {"rtol": RTOL, "atol": ATOL,
                                "atol_rel_to_max": BWD_ATOL_REL}}
 
-# The backward kernels' rows, in f32 and in bf16: V2 at the train step's
-# B=256, at the smallest batch it serves (V2_MIN_BATCH = 64) and at a B
-# that leaves a partial last group of rows, V1 at the train step's B=32.
-BWD_ROWS = (("lstm_layer_bwd_v2", 256), ("lstm_layer_bwd_v2", 64),
-            ("lstm_layer_bwd_v2", 200), ("lstm_layer_bwd_v1", 32))
+# The backward kernels' rows (name, S, B, H), in f32 and in bf16: V2 at the
+# train step's B=256, at the smallest batch it serves (V2_MIN_BATCH = 64)
+# and at a B that leaves a partial last group of rows; V1 at the train
+# step's B=32, at the ragged B=40 and at the AlphaStar step's core (S = T+1
+# = 17, B=8, H=128).  The train step's rows draw their inputs from the
+# phase's generator, the others from one of their own, in this order.
+BWD_ROWS = (("lstm_layer_bwd_v2", 33, 256, 512),
+            ("lstm_layer_bwd_v2", 33, 64, 512),
+            ("lstm_layer_bwd_v2", 33, 200, 512),
+            ("lstm_layer_bwd_v1", 33, 32, 512),
+            ("lstm_layer_bwd_v1", 33, 40, 512),
+            ("lstm_layer_bwd_v1", 17, 8, 128))
 
 
-def bwd_row_key(name, S, B):
+def train_row(B, H) -> bool:
+    return B in (256, 32) and H == 512
+
+
+def bwd_row_key(name, S, B, H):
     """The row's key: the train step's B is the row the kernels line
     reads."""
-    return f"{name} S={S}" if B in (256, 32) else f"{name} S={S} B={B}"
+    if train_row(B, H):
+        return f"{name} S={S}"
+    return f"{name} S={S} B={B}" + ("" if H == 512 else f" H={H}")
 
 
 def ptxas_of(log, kernel, tag) -> list:
@@ -795,15 +811,55 @@ def v2_launch_info(B, H, item) -> dict:
             "ptxas": ptxas_of(lib.build_log, "lstm_layer_bwd_v2_kernel", tag)}
 
 
+def v1_launch_info(B, H, item, cluster=None) -> dict:
+    """V1's launch at (B, H) with `item`-byte streams, as v2_launch_info
+    reports V2's (`cluster` overrides the route's cluster size)."""
+    lib = _build.library()
+    shape = kernels.v1_launch_shape(B, H, item, cluster)
+    tag = ("I13__nv_bfloat16" if item == 2 else "If") + \
+        f"Li{shape['rows_per_group']}E"
+    return {**shape,
+            "max_active_clusters":
+                lib.cdll.lstm_layer_bwd_v1_max_active_clusters(
+                    B, H, item, shape["cluster"], shape["rows_per_group"]),
+            "ptxas": ptxas_of(lib.build_log, "lstm_layer_bwd_v1_kernel", tag)}
+
+
+def v1_candidates(args) -> dict:
+    """V1's cold time with clusters of 8 and of 16 CTAs, in turns (8, 16,
+    16, 8), each with its launch."""
+    S, B, G = args[0].shape
+    H, item = G // 4, args[0].element_size()
+    out = {}
+    for cluster in (8, 16, 16, 8):
+        ms = cold_ms(lambda: kernels.lstm_cell._lstm_layer_bwd_v1_cuda(
+            *args, norm=True, cluster=cluster))
+        cand = out.setdefault(str(cluster), {
+            **v1_launch_info(B, H, item, cluster), "ms": []})
+        cand["ms"].append(ms)
+    return out
+
+
+def bwd_launch_checks(name, row, got, again, B, H, item) -> None:
+    """A backward row's second run bitwise equal to its first, and its
+    launch (V2's or V1's)."""
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"{name} B={B} H={H} item={item}: repeated "
+                             f"runs differ")
+    row["bitwise_repeatable"] = True
+    row["launch"] = (v2_launch_info(B, H, item) if name.endswith("v2")
+                     else v1_launch_info(B, H, item))
+
+
 def bwd_kernel_rows(rng, dev) -> dict:
-    """Both LSTM backward kernels against their plain versions at the train
-    step's shapes, V2's repeatability, and the layer's autograd.Function
-    against autograd through the plain forward."""
+    """Both LSTM backward kernels against their plain versions at
+    BWD_ROWS' shapes, their repeatability and launch, V1's cluster sizes
+    timed in turns, and the layer's autograd.Function against autograd
+    through the plain forward."""
     rows = {}
-    S, H = 33, 512
     extra = np.random.default_rng(SEED + 11)
-    for name, B in BWD_ROWS:
-        args = bwd_inputs(rng if B in (256, 32) else extra, S, B, H, dev)
+    for name, S, B, H in BWD_ROWS:
+        args = bwd_inputs(rng if train_row(B, H) else extra, S, B, H, dev)
         if name.endswith("v1"):
             gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn, \
                 dcn = args
@@ -817,21 +873,20 @@ def bwd_kernel_rows(rng, dev) -> dict:
         torch.cuda.synchronize()
         want = plain(*args)
         row = {"shape": f"S={S},B={B},H={H}", **BWD_TOLERANCE}
-        if name.endswith("v2"):
-            if not all(torch.equal(g, a) for g, a in zip(got, again)):
-                raise AssertionError(f"{name} B={B}: repeated runs differ")
-            row["bitwise_repeatable"] = True
-            row["launch"] = v2_launch_info(B, H, item=4)
-        row.update(compare(f"{name} B={B}", got, want, atol_rel=BWD_ATOL_REL))
+        bwd_launch_checks(name, row, got, again, B, H, item=4)
+        row.update(compare(f"{name} B={B} H={H}", got, want,
+                           atol_rel=BWD_ATOL_REL))
         row.update(kernel_ms(lambda: wrapper(*args), per_rep=3))
         row["plain_ms"] = cuda_ms(lambda: plain(*args), 3, warmup=1)
         row["bound_ms"], row["bound_by"] = bound_ms(
             *lstm_bwd_bound(name[-2:], S, B, H), TF32X3_FLOP_PER_S)
-        rows[bwd_row_key(name, S, B)] = row
+        if name.endswith("v1") and B in (32, 8):
+            row["candidates"] = v1_candidates(args)
+        rows[bwd_row_key(name, S, B, H)] = row
 
     # The autograd.Function's 9 gradients at the train step's B=256 (V2),
     # against PyTorch's autograd through the plain forward, on the card.
-    B = 256
+    S, B, H = 33, 256, 512
     with torch.inference_mode(False), torch.enable_grad():
         fwd = [a.clone().requires_grad_() for a in
                lstm_inputs(rng, S, B, H, dev)]
@@ -1801,8 +1856,8 @@ def profile_one(fn) -> dict:
 
 def phase_profile(dev) -> dict:
     """profile_one over each timed call of the slice, the train step at
-    B=256 in float32 and in bf16, the three on-policy calls, the UPGO loss
-    and the AlphaStar train step."""
+    B=256 and at B=32 (V1) in float32 and in bf16, the three on-policy
+    calls, the UPGO loss and the AlphaStar train step."""
     _, params, obs, serve_obs, _, _, _, big_x = slice_inputs(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
@@ -1820,6 +1875,14 @@ def phase_profile(dev) -> dict:
                                       dev, torch.bfloat16)
     out[f"bf16_train_step_T{T_TR}_B{B}"] = profile_one(
         lambda: step(params, batch))
+    # The B=32 legs, whose backward is V1, in f32 and in bf16.
+    rng = np.random.default_rng(SEED + 10)
+    arrays, B = model_arrays(rng), TRAIN_LEGS[1][0]
+    batch_np = train_batch(rng, B)
+    for tag, dtype in (("", None), ("bf16_", torch.bfloat16)):
+        params, step, batch = train_setup(arrays, batch_np, dev, dtype)
+        out[f"{tag}train_step_T{T_TR}_B{B}"] = profile_one(
+            lambda: step(params, batch))
     rng = np.random.default_rng(SEED + 5)
     x = to_dev(onpolicy_arrays(rng), dev)
     for name, fn in onpolicy_timed_calls(
@@ -1842,7 +1905,7 @@ KERNELS = (
      "di_hpc_tpu/pallas_kernels/lstm_cell.py:115", "lstm_layer_fused S=33"),
     ("lstm_layer_bwd_v2", "di_hpc_tpu_torch/csrc/lstm_layer_bwd_v2.cu",
      "di_hpc_tpu/pallas_kernels/lstm_cell.py:389", "lstm_layer_bwd_v2 S=33"),
-    ("lstm_layer_bwd_v1", "di_hpc_tpu_torch/csrc/lstm_layer_bwd.cu",
+    ("lstm_layer_bwd_v1", "di_hpc_tpu_torch/csrc/lstm_layer_bwd_v1.cu",
      "di_hpc_tpu/pallas_kernels/lstm_cell.py:276", "lstm_layer_bwd_v1 S=33"),
     ("vtrace_losses", "di_hpc_tpu_torch/csrc/vtrace.cu",
      "di_hpc_tpu/pallas_kernels/rl_scans.py:558", "vtrace_losses T=1024"),
@@ -1869,26 +1932,44 @@ KERNELS = (
     ("lstm_layer_bwd_v2_bf16", "di_hpc_tpu_torch/csrc/lstm_layer_bwd_v2.cu",
      "di_hpc_tpu/pallas_kernels/lstm_cell.py:389",
      "lstm_layer_bwd_v2 bf16 S=33"),
-    ("lstm_layer_bwd_v1_bf16", "di_hpc_tpu_torch/csrc/lstm_layer_bwd.cu",
+    ("lstm_layer_bwd_v1_bf16", "di_hpc_tpu_torch/csrc/lstm_layer_bwd_v1.cu",
      "di_hpc_tpu/pallas_kernels/lstm_cell.py:276",
      "lstm_layer_bwd_v1 bf16 S=33"),
 )
 
 
-def bwd_digests(dev) -> dict:
-    """sha256 of the LSTM backward kernels' outputs -- V2 at B = 256, 64
-    and 200, V1 at B = 32; S=33, H=512; f32 and bf16 -- on inputs from the
-    plain forward (so they do not depend on kernel 1), and ptxas' register
-    and spill lines of their instantiations.  Run in two checkouts, the
-    digests show whether a change left these kernels bitwise the same."""
+# Kernel 1's digest rows (S, B, H): both routes, 24- and 8-row groups.
+FWD_DIGEST_ROWS = ((33, 256, 512), (1, 8, 512), (9, 64, 510))
+
+
+def digests(dev) -> dict:
+    """sha256 of the LSTM kernels' outputs -- kernel 1 (with and without
+    the stash) at FWD_DIGEST_ROWS, V2 and V1 at BWD_ROWS' shapes; f32 and
+    bf16 -- on inputs from the plain forward (so the backward's do not
+    depend on kernel 1), and ptxas' register and spill lines of their
+    instantiations.  Run in two checkouts, the digests show whether a change
+    left these kernels bitwise the same."""
     import hashlib
+
+    def sha(tensors):
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for t in tensors:
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
+        return digest.hexdigest()
 
     lib = _build.library()
     out = {}
-    S, H = 33, 512
     for dtype in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(SEED + 16)
+        for S, B, H in FWD_DIGEST_ROWS:
+            fwd = lstm_inputs(rng, S, B, H, dev, dtype)
+            for name in ("lstm_layer_fused", "lstm_layer_stash"):
+                out[f"{name} {dtype} S={S} B={B} H={H}"] = sha(
+                    getattr(kernels, name)(*fwd))
         rng = np.random.default_rng(SEED + 15)
-        for name, B in BWD_ROWS:
+        for name, S, B, H in BWD_ROWS:
             fwd = lstm_inputs(rng, S, B, H, dev, dtype)
             y, c_seq, _, _ = kernels.lstm_layer_stash_plain(*fwd)
             gxp, wh, glnx, blnx, gln, bln, bias, h0, c0 = fwd
@@ -1901,14 +1982,10 @@ def bwd_digests(dev) -> dict:
                 args = (*kernels.lstm_layer_bwd_v1_streams(
                     gxp, y, c_seq, wh, glnx, blnx, bias, h0, c0), c_seq, dy,
                     wh, gln, bln, dhn, dcn)
-            got = getattr(kernels, name)(*args)
-            torch.cuda.synchronize()
-            digest = hashlib.sha256()
-            for t in got:
-                digest.update(t.contiguous().view(torch.uint8).cpu()
-                              .numpy().tobytes())
-            out[f"{name} {dtype} B={B}"] = digest.hexdigest()
-    for kernel in ("lstm_layer_bwd_v2_kernel", "lstm_layer_bwd_v1_kernel"):
+            out[f"{name} {dtype} S={S} B={B} H={H}"] = sha(
+                getattr(kernels, name)(*args))
+    for kernel in ("lstm_layer_cluster_kernel", "lstm_layer_fwd_kernel",
+                   "lstm_layer_bwd_v2_kernel", "lstm_layer_bwd_v1_kernel"):
         for tag in ("If", "I13__nv_bfloat16"):
             out[f"ptxas {kernel}{tag}"] = ptxas_of(lib.build_log, kernel, tag)
     return out
@@ -1926,7 +2003,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if sys.argv[1:] == ["--digests"]:
         with torch.inference_mode():
-            emit({"digests": bwd_digests(dev)})
+            emit({"digests": digests(dev)})
+        return 0
+    if sys.argv[1:] == ["--profile"]:
+        emit({"profile": phase_profile(dev)})
         return 0
 
     results = {}

@@ -1,13 +1,12 @@
 // Device code shared by the LN-LSTM layer's forward kernels
 // (lstm_layer_cluster.cu, and lstm_layer.cu for H % 4 != 0) and its backward
-// kernels (lstm_layer_bwd.cu, lstm_layer_bwd_v2.cu).
+// kernels (lstm_layer_bwd_v1.cu, lstm_layer_bwd_v2.cu).
 //
 // LayerNorm statistics take lstm_cell.py:_ln_stats's one-pass form,
-// variance clamped at 0.  V1 and the 8-row forward multiply with
-// matmul_rows; the cluster kernels use only the element helpers here and
-// run their products on the tensor cores (lstm_mma.cuh), so V2's gh_pre
-// differs from the forward's by float32 rounding (3xTF32) or by summation
-// order (bf16).
+// variance clamped at 0.  The 8-row forward multiplies with matmul_rows;
+// the cluster kernels use only the element helpers here and run their
+// products on the tensor cores (lstm_mma.cuh), so V2's gh_pre differs from
+// the forward's by float32 rounding (3xTF32) or by summation order (bf16).
 //
 // Stream types.  Every kernel is a template on the element type T of its
 // streams and weights, float or __nv_bfloat16, as the TPU kernels take f32
@@ -99,37 +98,28 @@ __device__ __forceinline__ void fma_rows(float (&acc)[kRows][4], float4 w,
   }
 }
 
-// out (kRows, N) = a @ w for the CTA's kRows rows, split over K into
-// kSplits equal slices whose partial products land at out + s*kRows*N (the
-// caller sums them; kSplits = 1 writes the product itself).  a is given
-// k-major as aT (K, kRows) in shared memory, so one k step is two broadcast
-// float4 loads; w (K, N) is row-major in global memory, N % 4 == 0 with
-// aligned rows, streamed from L2 in 4-column strips (load4).  One item is 4
-// adjacent output columns of one slice, for either weight type W: a bf16
-// Wh moves half the bytes of a float one through the same number of loads
-// and FMAs, and every thread still has an item (4H / 4 = 512 items at
-// H = 512).  Products of bf16 values are exact in float32 and the sums are
-// float32, the TPU's preferred_element_type=f32 product.  kSplits is a
-// template argument so that the forward's product (kSplits = 1) carries no
-// slice arithmetic.
-template <int kSplits, typename W>
+// out (kRows, N) = a @ w for the CTA's kRows rows.  a is given k-major as
+// aT (K, kRows) in shared memory, so one k step is two broadcast float4
+// loads; w (K, N) is row-major in global memory, N % 4 == 0 with aligned
+// rows, streamed from L2 in 4-column strips (load4).  One item is 4
+// adjacent output columns, for either weight type W: a bf16 Wh moves half
+// the bytes of a float one through the same number of loads and FMAs, and
+// every thread still has an item (4H / 4 = 512 items at H = 512).  Products
+// of bf16 values are exact in float32 and the sums are float32, the TPU's
+// preferred_element_type=f32 product.
+template <typename W>
 __device__ __forceinline__ void matmul_rows(const float* __restrict__ aT,
                                             const W* __restrict__ w,
                                             int K, int N,
                                             float* __restrict__ out) {
-  const int quads = N / 4;
-  const int kslice = K / kSplits;
-  for (int item = threadIdx.x; item < kSplits * quads; item += kThreads) {
-    const int s = kSplits == 1 ? 0 : item / quads;
-    const int col = 4 * (item - s * quads);
-    const int k0 = s * kslice, k1 = k0 + kslice;
+  for (int col = 4 * threadIdx.x; col < N; col += 4 * kThreads) {
     float acc[kRows][4];
 #pragma unroll
     for (int b = 0; b < kRows; ++b)
       acc[b][0] = acc[b][1] = acc[b][2] = acc[b][3] = 0.f;
     const W* wcol = w + col;
-    int k = k0;
-    for (; k + kKUnroll <= k1; k += kKUnroll) {
+    int k = 0;
+    for (; k + kKUnroll <= K; k += kKUnroll) {
       float4 wv[kKUnroll];
 #pragma unroll
       for (int u = 0; u < kKUnroll; ++u)
@@ -138,12 +128,11 @@ __device__ __forceinline__ void matmul_rows(const float* __restrict__ aT,
       for (int u = 0; u < kKUnroll; ++u)
         fma_rows(acc, wv[u], aT + (k + u) * kRows);
     }
-    for (; k < k1; ++k)
+    for (; k < K; ++k)
       fma_rows(acc, load4(wcol + (size_t)k * N), aT + k * kRows);
-    float* o = out + (size_t)s * kRows * N;
 #pragma unroll
     for (int b = 0; b < kRows; ++b)
-      *reinterpret_cast<float4*>(o + b * N + col) =
+      *reinterpret_cast<float4*>(out + b * N + col) =
           make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
   }
 }

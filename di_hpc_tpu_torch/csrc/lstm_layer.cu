@@ -104,7 +104,7 @@ lstm_layer_fwd_kernel(const T* __restrict__ gxp,
 
   for (int t = 0; t < S; ++t) {
     // 1. gh = h @ Wh.
-    matmul_rows<1>(hT_s, wh, H, G, gh_s);
+    matmul_rows(hT_s, wh, H, G, gh_s);
     __syncthreads();
 
     // 2. One warp per row: stage gxp_t into shared memory and take the

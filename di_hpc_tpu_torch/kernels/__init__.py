@@ -32,6 +32,7 @@ from .lstm_cell import (
     lstm_layer_plain,
     lstm_layer_stash,
     lstm_layer_stash_plain,
+    v1_launch_shape,
     v2_launch_shape,
 )
 from .rl_scans import (

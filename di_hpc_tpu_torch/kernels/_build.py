@@ -48,9 +48,12 @@ _SIGNATURES = {
     "lstm_layer_bwd_v2_rows_per_group": (_i, [_i, _i]),
     "lstm_layer_bwd_v2_cluster_size": (_i, [_i]),
     "lstm_layer_bwd_v2_max_active_clusters": (_i, [_i, _i, _i]),
-    "lstm_layer_bwd_v1_f32": (_i, [_p] * 14 + [_i] * 4 + [_p]),
-    "lstm_layer_bwd_v1_bf16": (_i, [_p] * 14 + [_i] * 4 + [_p]),
-    "lstm_layer_bwd_v1_smem_bytes": (ctypes.c_longlong, [_i]),
+    "lstm_layer_bwd_v1_f32": (_i, [_p] * 14 + [_i] * 6 + [_p]),
+    "lstm_layer_bwd_v1_bf16": (_i, [_p] * 14 + [_i] * 6 + [_p]),
+    "lstm_layer_bwd_v1_cluster_size": (_i, [_i]),
+    "lstm_layer_bwd_v1_rows_per_group": (_i, [_i] * 4),
+    "lstm_layer_bwd_v1_smem_bytes": (ctypes.c_longlong, [_i] * 4),
+    "lstm_layer_bwd_v1_max_active_clusters": (_i, [_i] * 5),
     "vtrace_losses_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_p]),
     "vtrace_returns_adv_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_p]),
     "gae_f32": (_i, [_p] * 4 + [_i] * 2 + [_f] * 2 + [_p]),

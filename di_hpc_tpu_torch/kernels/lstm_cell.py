@@ -1,6 +1,6 @@
 """Whole-layer LN-LSTM: the hand-written Hopper kernels (the forward in
 csrc/lstm_layer_cluster.cu, with csrc/lstm_layer.cu for H % 4 != 0;
-csrc/lstm_layer_bwd_v2.cu, csrc/lstm_layer_bwd.cu), their plain PyTorch
+csrc/lstm_layer_bwd_v2.cu, csrc/lstm_layer_bwd_v1.cu), their plain PyTorch
 versions, and the torch.autograd.Function that joins forward and backward.
 
 Counterpart of di_hpc_tpu/pallas_kernels/lstm_cell.py, same arguments and
@@ -54,7 +54,7 @@ __all__ = [
     "lstm_layer_stash_plain", "lstm_layer_bwd_v2", "lstm_layer_bwd_v2_plain",
     "lstm_layer_bwd_v1", "lstm_layer_bwd_v1_plain",
     "lstm_layer_bwd_v1_streams", "layer_launch_shape", "v2_launch_shape",
-    "V2_MIN_BATCH",
+    "v1_launch_shape", "V2_MIN_BATCH",
 ]
 
 # The backward runs V2 from this batch size up, as lstm_cell.py:_bwd_fits_v2
@@ -475,13 +475,23 @@ def lstm_layer_bwd_v1(gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn,
     """The V1 backward (see lstm_layer_bwd_v1_plain for the function and
     its outputs).  CPU tensors run the plain version; CUDA tensors launch
     the kernel (float32 or bf16 streams, all of gx's type but gh_pre, which
-    is float32; contiguous, H % 4 == 0) or raise."""
-    names = ("gx", "gh_pre", "c_prev", "c_seq", "dy", "wh", "gln", "bln",
-             "dhn", "dcn")
+    is float32; contiguous, H % 4 == 0) or raise.  The kernel runs one
+    cluster of CTAs per group of rows (`v1_launch_shape`)."""
     args = (gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn)
     if _build.on_cpu(*args):
         return lstm_layer_bwd_v1_plain(*args, norm=norm)
+    return _lstm_layer_bwd_v1_cuda(*args, norm=norm)
+
+
+def _lstm_layer_bwd_v1_cuda(gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn,
+                            dcn, norm, cluster=None, rows=None):
+    """The V1 kernel's launch.  `cluster` and `rows` override the route's
+    choices, to measure the candidates; by default the library chooses
+    (`v1_launch_shape`)."""
     name = "lstm_layer_bwd_v1"
+    names = ("gx", "gh_pre", "c_prev", "c_seq", "dy", "wh", "gln", "bln",
+             "dhn", "dcn")
+    args = (gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn)
     dt = _stream_dtype(name, gx)
     _build.check_kernel_inputs(name, dict(zip(names, args)),
                                aligned=("gh_pre",),
@@ -494,18 +504,43 @@ def lstm_layer_bwd_v1(gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn,
         **{n: (t, (S, B, H)) for n, t in zip(names[2:5], args[2:5])},
         "gln": (gln, (G,)), "bln": (bln, (G,)),
         "dhn": (dhn, (B, H)), "dcn": (dcn, (B, H))})
-    if H % 4:
-        raise ValueError(f"{name}: H must be a multiple of 4; got {H}")
-    lib = _build.library().cdll
-    _check_smem(name, lib.lstm_layer_bwd_v1_smem_bytes(H), H, gx.device)
+    shape = v1_launch_shape(B, H, gx.element_size(), cluster, rows)
+    _check_smem(name, shape["smem_bytes"], H, gx.device)
 
+    lib = _build.library().cdll
     dgate, dg_pre = torch.empty_like(gx), torch.empty_like(gx)
     dh0, dc0 = torch.empty_like(dhn), torch.empty_like(dhn)
-    _launch(name, _entry(lib, "lstm_layer_bwd_v1", dt), gx.device, gx, gh_pre,
-            c_prev, c_seq, dy, wh.t().contiguous(), gln, bln, dhn, dcn, dgate,
-            dg_pre, dh0, dc0, S, B, H, int(bool(norm)))
+    _launch(name, _entry(lib, "lstm_layer_bwd_v1", dt), gx.device, *args,
+            dgate, dg_pre, dh0, dc0, S, B, H, int(bool(norm)),
+            shape["cluster"], shape["rows_per_group"])
     _count(lstm_layer_bwd_v1, dt)
     return dgate, dg_pre, dh0, dc0
+
+
+def v1_launch_shape(B: int, H: int, item: int, cluster=None,
+                    rows=None) -> dict:
+    """The V1 kernel's launch at batch B and hidden size H (H % 4 == 0)
+    with `item`-byte streams (4: float32, 2: bf16), as the library reckons
+    it: the route ("cluster": one thread-block cluster per group of rows),
+    CTAs per cluster (16 where H % 64 == 0, else 4-8 dividing H; each CTA
+    owns H / cluster units), batch rows per group (8, or 16 where 8-row
+    groups would not fit in one wave), groups, the grid in CTAs and the
+    dynamic shared memory of one CTA.  `cluster` and `rows` override the
+    route's choices."""
+    if H % 4:
+        raise ValueError(f"lstm_layer_bwd_v1: H must be a multiple of 4; "
+                         f"got {H}")
+    lib = _build.library().cdll
+    cluster = cluster or lib.lstm_layer_bwd_v1_cluster_size(H)
+    if H % cluster:
+        raise ValueError(f"lstm_layer_bwd_v1: a cluster of {cluster} CTAs "
+                         f"does not divide H={H}")
+    rows = rows or lib.lstm_layer_bwd_v1_rows_per_group(B, H, item, cluster)
+    groups = (B + rows - 1) // rows
+    return {"route": "cluster", "cluster": cluster, "rows_per_group": rows,
+            "groups": groups, "grid": groups * cluster,
+            "smem_bytes": lib.lstm_layer_bwd_v1_smem_bytes(H, item, cluster,
+                                                           rows)}
 
 
 lstm_layer_bwd_v1.launches = 0

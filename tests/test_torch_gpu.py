@@ -416,6 +416,131 @@ def test_lstm_bwd_v2_raises_on_what_it_cannot_take(cuda):
     assert (v2.launches, v2.launches_bf16) == before
 
 
+def _v1_inputs(seed, S, B, H, dev, dtype, norm=True):
+    """The V1 kernel's arguments in `dtype` (gh_pre float32), Wh scaled to
+    1/sqrt(H) from H = 200 up."""
+    wh_scale = 1 / np.sqrt(H) if H >= 200 else 0.1
+    make = _bwd_inputs if dtype == torch.float32 else _bwd_inputs_bf16
+    return _v1_args(make(seed, S, B, H, dev, wh_scale), norm)
+
+
+def _close_v1(args, got, want, norm, msg="v1"):
+    """f32 at RTOL and ATOL + 1e-5 * max|want|, as in
+    test_lstm_bwd_kernels_match_plain; bf16 at chip_smoke's bound."""
+    if args[0].dtype == torch.bfloat16:
+        _close_bf16(kernels.lstm_layer_bwd_v1_plain, args, got, want, msg,
+                    norm=norm)
+        return
+    for i, (g, w) in enumerate(zip(got, want)):
+        atol = ATOL + 1e-5 * float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=atol,
+                                   msg=f"{msg} output {i}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_v1_is_bitwise_repeatable(cuda, dtype):
+    """DSM sums in rank order, no float atomics; at the train step's B=32
+    leg (S=33, H=512) on the cluster route."""
+    args = _v1_inputs(50, 33, 32, 512, cuda, dtype)
+    shape = kernels.v1_launch_shape(32, 512, args[0].element_size())
+    assert shape["route"] == "cluster" and shape["cluster"] >= 4
+    with torch.no_grad():
+        first = kernels.lstm_layer_bwd_v1(*args)
+        second = kernels.lstm_layer_bwd_v1(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# V1's clusters and row groups: ragged B = 13, 17 and 40 (a partial last
+# group of rows); H = 96 (a cluster of 8 CTAs of 12 units), 128 and 512 (16
+# CTAs of 8 and of 32 units), H = 36 (6 CTAs of 6 units, which move one
+# element at a time) and the AlphaStar core's shape (S = 17, B = 8, H =
+# 128); norm on and off.
+@pytest.mark.parametrize("S,B,H,norm", [(9, 13, 96, True), (5, 17, 128, False),
+                                        (5, 40, 512, True), (9, 40, 128, True),
+                                        (5, 13, 36, False), (17, 8, 128, True),
+                                        (3, 17, 512, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_v1_clusters_match_plain(cuda, dtype, S, B, H, norm):
+    args = _v1_inputs(51, S, B, H, cuda, dtype, norm)
+    wrapper = kernels.lstm_layer_bwd_v1
+    with torch.no_grad():
+        before = wrapper.launches + wrapper.launches_bf16
+        got = wrapper(*args, norm=norm)
+        again = wrapper(*args, norm=norm)
+        torch.cuda.synchronize()
+        want = kernels.lstm_layer_bwd_v1_plain(*args, norm=norm)
+    assert wrapper.launches + wrapper.launches_bf16 == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _close_v1(args, got, want, norm)
+
+
+# Every route the kernel takes at H = 128, B = 17: clusters of 4, 8 and 16
+# CTAs, 8 and 16 rows per group.  Within one cluster size a row's arithmetic
+# does not depend on its group, so both group sizes give the same bits.
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_v1_routes_match_plain(cuda, dtype, cluster):
+    args = _v1_inputs(52, 9, 17, 128, cuda, dtype)
+    with torch.no_grad():
+        outs = [kernels.lstm_cell._lstm_layer_bwd_v1_cuda(
+                    *args, norm=True, cluster=cluster, rows=rows)
+                for rows in (8, 16)]
+        torch.cuda.synchronize()
+        want = kernels.lstm_layer_bwd_v1_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    _close_v1(args, outs[0], want, True, f"v1 cluster={cluster}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_v1_takes_every_width_up_to_724(cuda, dtype):
+    """The 8-row kernel V1 had before its cluster split took every H % 4 ==
+    0 up to 724 (320*H + 128 bytes of shared memory): each such H runs on
+    the cluster route, against the plain version."""
+    props = torch.cuda.get_device_properties(cuda)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    item = torch.finfo(dtype).bits // 8
+    for H in range(4, 725, 4):
+        shape = kernels.v1_launch_shape(3, H, item)
+        assert shape["route"] == "cluster" and H % shape["cluster"] == 0
+        assert shape["cluster"] >= 4 and shape["smem_bytes"] <= limit, H
+        args = _v1_inputs(53, 2, 3, H, cuda, dtype)
+        with torch.no_grad():
+            got = kernels.lstm_layer_bwd_v1(*args)
+            torch.cuda.synchronize()
+            want = kernels.lstm_layer_bwd_v1_plain(*args)
+        _close_v1(args, got, want, True, f"v1 H={H}")
+
+
+def test_lstm_bwd_v1_raises_on_what_it_cannot_take(cuda):
+    """On CUDA tensors the V1 wrapper launches its kernel or raises; it
+    never returns the plain version's result."""
+    v1 = kernels.lstm_layer_bwd_v1
+    before = (v1.launches, v1.launches_bf16)
+    args = list(_v1_inputs(54, 3, 8, 32, cuda, torch.float32))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        v1(*[a.double() for a in args])
+    strided = torch.cat([args[0], args[0]], dim=-1)[..., :args[0].shape[-1]]
+    with pytest.raises(ValueError, match="must be contiguous"):
+        v1(strided, *args[1:])
+    with pytest.raises(ValueError, match="all inputs must lie"):
+        v1(*args[:5], args[5].cpu(), *args[6:])
+    with pytest.raises(ValueError, match=r"dy must be \(3, 8, 32\)"):
+        v1(*args[:4], args[4][:, :4].contiguous(), *args[5:])
+    with pytest.raises(ValueError, match="does not divide"):
+        kernels.lstm_cell._lstm_layer_bwd_v1_cuda(*args, norm=True,
+                                                  cluster=3)
+    odd = _v1_inputs(55, 2, 8, 30, cuda, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        v1(*odd)
+    H = 4096
+    big = [torch.zeros(s, device=cuda) for s in
+           [(1, 1, 4 * H)] * 2 + [(1, 1, H)] * 3 + [(H, 4 * H)]
+           + [(4 * H,)] * 2 + [(1, H)] * 2]
+    with pytest.raises(ValueError, match="shared memory"):
+        v1(*big)
+    assert (v1.launches, v1.launches_bf16) == before
+
+
 def _layer_loss(y, hn, cn):
     return (y * torch.cos(y)).sum() + (hn ** 2).sum() + torch.sin(cn).sum()
 
