@@ -38,7 +38,14 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 the float32 LSTM rows are bounded at the 3xTF32 tensor-core
                 rate; the layer's autograd.Function (stash forward,
                 backward kernels) is held against autograd through the
-                plain forward.  The scan kernels (gae, lambda_returns,
+                plain forward.  The V-trace kernels (vtrace_losses,
+                vtrace_returns_adv) run at the forward's T=32, B=256, the
+                north-star T=1024, B=4096, the B=32 train leg's T=32 and
+                the AlphaStar step's T=16, B=8; each row is bitwise
+                repeatable and prints its launch (columns and chunks per
+                CTA, super-tiles, grid, ptxas' registers and spills); the
+                T=1024 rows time the chosen tiling against 32 columns x
+                8 chunks in turns.  The scan kernels (gae, lambda_returns,
                 td_lambda_loss, td_lambda_err, linear_scan both ways with a
                 zero, a scalar and a (B,) boundary, upgo_advantages,
                 upgo_loss) run at T=1024, B=4096, at a ragged B and at T=1;
@@ -379,6 +386,87 @@ def vtrace_bounds(T, B):
     return losses, returns
 
 
+# The V-trace kernels' rows: the forward's (T, B) and the north-star shape,
+# then the B=32 train leg's and the AlphaStar step's (from their own seed,
+# so that the earlier rows keep their inputs).
+VTRACE_ROWS = ((32, 256), (1024, 4096), (32, 32), (16, 8))
+VTRACE_CLIPS = (0.99, 0.95, 1.0, 1.0, 1.0)
+# The tiling timed against the chosen one at the north-star shape.
+VTRACE_OTHER = {"cols": 32, "chunks": 8}
+
+
+def vtrace_launch_shape(T, B, **tiling) -> dict:
+    """kernels.vtrace_launch_shape on this card."""
+    return kernels.vtrace_launch_shape(
+        T, B, torch.cuda.get_device_properties(0).multi_processor_count,
+        **tiling)
+
+
+def vtrace_launch_info(T, B) -> dict:
+    """The V-trace kernels' launch at (T, B) and ptxas' register and spill
+    lines of both instantiations."""
+    log = _build.library().build_log
+    return {**vtrace_launch_shape(T, B),
+            "ptxas": {name: ptxas_of(log, "vtrace_chunked_kernel", tag)
+                      for name, tag in (("losses", "ILb1E"),
+                                        ("returns_adv", "ILb0E"))}}
+
+
+def vtrace_candidates(launch, args) -> dict:
+    """One V-trace kernel's cold time with the chosen tiling and with
+    VTRACE_OTHER, in turns (chosen, other, other, chosen)."""
+    T, B = args[-1].shape[0] - 1, args[-1].shape[1]
+    shape = vtrace_launch_shape(T, B)
+    chosen = {"cols": shape["cols"], "chunks": shape["chunks"]}
+    out = {}
+    for tiling in (chosen, VTRACE_OTHER, VTRACE_OTHER, chosen):
+        ms = cold_ms(lambda: launch(*args, *VTRACE_CLIPS, **tiling))
+        out.setdefault(f"{tiling['cols']}x{tiling['chunks']}", {
+            **vtrace_launch_shape(T, B, **tiling), "ms": []})["ms"].append(ms)
+    return out
+
+
+def vtrace_kernel_rows(rng, dev) -> dict:
+    """Both V-trace kernels against their plain versions at VTRACE_ROWS'
+    shapes, each bitwise repeatable, with its launch, times and bound; at
+    T=1024 the chosen tiling against VTRACE_OTHER."""
+    rows = {}
+    extra = np.random.default_rng(SEED + 17)
+    clips = VTRACE_CLIPS
+    for T, B in VTRACE_ROWS:
+        is_w, lp, reward, value = vtrace_inputs(
+            rng if (T, B) in VTRACE_ROWS[:2] else extra, T, B, dev)
+        bounds = vtrace_bounds(T, B)
+        plain_reps = 3 if T > 100 else 7
+        for name, args in (("vtrace_losses", (is_w, lp, reward, value)),
+                           ("vtrace_returns_adv", (is_w, reward, value))):
+            wrapper = getattr(kernels, name)
+            plain = getattr(kernels, name + "_plain")
+            got = wrapper(*args, *clips)
+            again = wrapper(*args, *clips)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"{name} T={T} B={B}: repeated runs "
+                                     f"differ")
+            row = {"shape": f"T={T},B={B}", "bitwise_repeatable": True,
+                   "launch": vtrace_launch_info(T, B),
+                   **compare(f"{name} T={T},B={B}", got,
+                             plain(*args, *clips))}
+            row.update(kernel_ms(lambda: wrapper(*args, *clips),
+                                 per_rep=10))
+            row["plain_ms"] = cuda_ms(lambda: plain(*args, *clips),
+                                      plain_reps, warmup=1)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                *bounds[name == "vtrace_returns_adv"])
+            if T == 1024:
+                row["candidates"] = vtrace_candidates(
+                    getattr(kernels.rl_scans, f"_{name}_cuda"), args)
+            key = f"{name} T={T}" + ("" if (T, B) in VTRACE_ROWS[:2]
+                                     else f" B={B}")
+            rows[key] = row
+    return rows
+
+
 def scan_bounds(T, B):
     """(bytes, ops) of the four row-constant scan kernels: each input read
     once (denom (T,) for GAE), each output written once; 6, 4, 7 and 5 f32
@@ -606,7 +694,6 @@ def fwd_extra_rows(dev, dtype) -> dict:
 
 def phase_kernels(dev) -> dict:
     rng = np.random.default_rng(SEED)
-    clips = (0.99, 0.95, 1.0, 1.0, 1.0)
     rows = {"tolerance": {"rtol": RTOL, "atol": ATOL}}
     with torch.inference_mode():
         # LSTM layer at the forward's unroll and at the serving step, then
@@ -622,40 +709,7 @@ def phase_kernels(dev) -> dict:
         rows.update(fwd_extra_rows(dev, torch.float32))
         rows.update(bwd_kernel_rows(rng, dev))
 
-        # V-trace kernels at the forward's (T, B) and the north-star shape.
-        for T, B in ((32, 256), (1024, 4096)):
-            is_w, lp, reward, value = vtrace_inputs(rng, T, B, dev)
-            (lb, lo), (rb, ro) = vtrace_bounds(T, B)
-            plain_reps = 3 if T > 100 else 7
-
-            got = kernels.vtrace_losses(is_w, lp, reward, value, *clips)
-            again = kernels.vtrace_losses(is_w, lp, reward, value, *clips)
-            torch.cuda.synchronize()
-            if not all(torch.equal(g, a) for g, a in zip(got, again)):
-                raise AssertionError("vtrace_losses: repeated runs differ")
-            want = kernels.vtrace_losses_plain(is_w, lp, reward, value,
-                                               *clips)
-            row = {"shape": f"T={T},B={B}", "bitwise_repeatable": True,
-                   **compare(f"vtrace_losses T={T}", got, want)}
-            row.update(kernel_ms(lambda: kernels.vtrace_losses(
-                is_w, lp, reward, value, *clips), per_rep=10))
-            row["plain_ms"] = cuda_ms(lambda: kernels.vtrace_losses_plain(
-                is_w, lp, reward, value, *clips), plain_reps, warmup=1)
-            row["bound_ms"], row["bound_by"] = bound_ms(lb, lo)
-            rows[f"vtrace_losses T={T}"] = row
-
-            got = kernels.vtrace_returns_adv(is_w, reward, value, *clips)
-            torch.cuda.synchronize()
-            want = kernels.vtrace_returns_adv_plain(is_w, reward, value,
-                                                    *clips)
-            row = {"shape": f"T={T},B={B}",
-                   **compare(f"vtrace_returns_adv T={T}", got, want)}
-            row.update(kernel_ms(lambda: kernels.vtrace_returns_adv(
-                is_w, reward, value, *clips), per_rep=10))
-            row["plain_ms"] = cuda_ms(lambda: kernels.vtrace_returns_adv_plain(
-                is_w, reward, value, *clips), plain_reps, warmup=1)
-            row["bound_ms"], row["bound_by"] = bound_ms(rb, ro)
-            rows[f"vtrace_returns_adv T={T}"] = row
+        rows.update(vtrace_kernel_rows(rng, dev))
         rows.update(scan_kernel_rows(rng, dev))
         rows.update(full_plane_kernel_rows(rng, dev))
         rows.update(bf16_kernel_rows(rng, dev))

@@ -48,6 +48,7 @@ from .rl_scans import (
     upgo_advantages_plain,
     upgo_loss,
     upgo_loss_plain,
+    vtrace_launch_shape,
     vtrace_losses,
     vtrace_losses_plain,
     vtrace_returns_adv,

@@ -54,8 +54,10 @@ _SIGNATURES = {
     "lstm_layer_bwd_v1_rows_per_group": (_i, [_i] * 4),
     "lstm_layer_bwd_v1_smem_bytes": (ctypes.c_longlong, [_i] * 4),
     "lstm_layer_bwd_v1_max_active_clusters": (_i, [_i] * 5),
-    "vtrace_losses_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_p]),
-    "vtrace_returns_adv_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_p]),
+    "vtrace_losses_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_i] * 2
+                          + [_p]),
+    "vtrace_returns_adv_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_i] * 2
+                               + [_p]),
     "gae_f32": (_i, [_p] * 4 + [_i] * 2 + [_f] * 2 + [_p]),
     "lambda_returns_f32": (_i, [_p] * 3 + [_i] * 2 + [_f] * 2 + [_p]),
     "td_lambda_loss_f32": (_i, [_p] * 3 + [_i] * 2 + [_f] * 2 + [_p]),

@@ -11,6 +11,9 @@ Counterparts of the V-trace part of di_hpc_tpu/pallas_kernels/rl_scans.py:
     writing the vs and advantage planes (the weighted path of
     ops.vtrace_error).
 
+Both kernels chunk the reverse recurrence over T (csrc/vtrace.cu); their
+launch shape is `vtrace_launch_shape(T, B)`.
+
 Both wrappers are torch.autograd.Functions on either device, with the
 JAX package's gradients.  `vtrace_losses` follows the V-trace stop-gradient
 contract (rl_scans.py:644-663): its backward recomputes vs and the
@@ -53,10 +56,11 @@ import torch
 from . import _build
 
 __all__ = ["vtrace_losses", "vtrace_losses_plain", "vtrace_returns_adv",
-           "vtrace_returns_adv_plain", "gae", "gae_plain", "lambda_returns",
-           "lambda_returns_plain", "td_lambda_loss", "td_lambda_loss_plain",
-           "td_lambda_err", "td_lambda_err_plain", "upgo_advantages",
-           "upgo_advantages_plain", "upgo_loss", "upgo_loss_plain"]
+           "vtrace_returns_adv_plain", "vtrace_launch_shape", "gae",
+           "gae_plain", "lambda_returns", "lambda_returns_plain",
+           "td_lambda_loss", "td_lambda_loss_plain", "td_lambda_err",
+           "td_lambda_err_plain", "upgo_advantages", "upgo_advantages_plain",
+           "upgo_loss", "upgo_loss_plain"]
 
 
 def vtrace_returns_adv_plain(is_weights, reward, value, gamma=0.99,
@@ -118,6 +122,55 @@ def _scalars(gamma, lambda_, rho_clip, c_clip, pg_clip):
             float(c_clip), float(pg_clip))
 
 
+# Steps of one thread in a super-tile (kChunk in csrc/vtrace.cu), the most
+# chunks in a super-tile and the most threads in a CTA (kMaxThreads).
+VTRACE_CHUNK = 8
+VTRACE_MAX_CHUNKS = 16
+VTRACE_MAX_THREADS = 512
+
+
+def vtrace_launch_shape(T: int, B: int, sms: int = 132, cols=None,
+                        chunks=None) -> dict:
+    """The V-trace kernels' launch at (T, B) on a card with `sms` SMs: a CTA
+    owns `cols` neighbouring columns (32, or 16 or 8 where wider tiles would
+    give fewer than sms / 2 CTAs) and `chunks` chunks of VTRACE_CHUNK steps
+    each (up to 16), one thread per column and chunk; together the chunks
+    make a super-tile, and the CTA walks ceil(T / super_tile_steps) of them
+    from the last.  The grid is ceil(B / cols) CTAs.  `cols` and `chunks`
+    override the choice.  The dynamic shared memory holds two buffers of
+    the chunks' (A, D) pairs and the losses' chunk partials."""
+    if T < 1 or B < 1:
+        raise ValueError(f"vtrace: T and B must be >= 1; got T={T}, B={B}")
+    if cols is None:
+        cols = 32
+        while cols > 8 and -(-B // cols) < sms // 2:
+            cols //= 2
+    chunks = chunks or min(-(-T // VTRACE_CHUNK), VTRACE_MAX_CHUNKS)
+    if cols * chunks > VTRACE_MAX_THREADS:
+        raise ValueError(f"vtrace: {cols} columns x {chunks} chunks exceed "
+                         f"{VTRACE_MAX_THREADS} threads")
+    steps, threads = chunks * VTRACE_CHUNK, cols * chunks
+    return {"cols": cols, "chunk": VTRACE_CHUNK, "chunks": chunks,
+            "threads": threads, "super_tile_steps": steps,
+            "super_tiles": -(-T // steps), "grid": -(-B // cols),
+            "smem_bytes": 6 * threads * 4}
+
+
+def _launch_vtrace(name, entry, tensors, T, B, clips, cols, chunks):
+    """One V-trace kernel launch on the current stream of the tensors'
+    device: `tensors` are the entry point's inputs and outputs in its
+    argument order."""
+    device = tensors[0].device
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shape = vtrace_launch_shape(T, B, sms, cols, chunks)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = entry(*(t.data_ptr() for t in tensors), T, B,
+                       *_scalars(*clips), shape["cols"], shape["chunks"],
+                       stream)
+    _build.check_status(name, status)
+
+
 def vtrace_losses(is_weights, lp, reward, value, gamma: float = 0.99,
                   lambda_: float = 0.95, rho_clip: float = 1.0,
                   c_clip: float = 1.0, pg_clip: float = 1.0):
@@ -135,19 +188,22 @@ vtrace_losses.launches = 0
 def _vtrace_losses_forward(is_weights, lp, reward, value, *clips):
     if _build.on_cpu(is_weights, lp, reward, value):
         return vtrace_losses_plain(is_weights, lp, reward, value, *clips)
+    return _vtrace_losses_cuda(is_weights, lp, reward, value, *clips)
+
+
+def _vtrace_losses_cuda(is_weights, lp, reward, value, *clips, cols=None,
+                        chunks=None):
+    """The losses kernel's launch; `cols` and `chunks` override
+    vtrace_launch_shape's choice, to measure the candidates."""
     name = "vtrace_losses"
     T, B = reward.shape if reward.ndim == 2 else (0, 0)
     is_weights, lp, reward, value = _check(
         name, {"is_weights": is_weights, "lp": lp, "reward": reward,
                "value": value}, T, B).values()
     parts = torch.empty((2, B), dtype=torch.float32, device=reward.device)
-    with torch.cuda.device(reward.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _build.library().cdll.vtrace_losses_f32(
-            is_weights.data_ptr(), lp.data_ptr(), reward.data_ptr(),
-            value.data_ptr(), parts.data_ptr(), T, B, *_scalars(*clips),
-            stream)
-    _build.check_status(name, status)
+    _launch_vtrace(name, _build.library().cdll.vtrace_losses_f32,
+                   (is_weights, lp, reward, value, parts), T, B, clips, cols,
+                   chunks)
     vtrace_losses.launches += 1
     # torch.sum on the card reduces in a fixed order: no float atomics, so
     # repeated runs are bitwise equal (docs/DESIGN.md section 3).
@@ -194,6 +250,13 @@ vtrace_returns_adv.launches = 0
 def _vtrace_returns_adv_forward(is_weights, reward, value, *clips):
     if _build.on_cpu(is_weights, reward, value):
         return vtrace_returns_adv_plain(is_weights, reward, value, *clips)
+    return _vtrace_returns_adv_cuda(is_weights, reward, value, *clips)
+
+
+def _vtrace_returns_adv_cuda(is_weights, reward, value, *clips, cols=None,
+                             chunks=None):
+    """The returns/advantage kernel's launch; `cols` and `chunks` as in
+    _vtrace_losses_cuda."""
     name = "vtrace_returns_adv"
     T, B = reward.shape if reward.ndim == 2 else (0, 0)
     is_weights, reward, value = _check(
@@ -201,12 +264,9 @@ def _vtrace_returns_adv_forward(is_weights, reward, value, *clips):
         T, B).values()
     ret = torch.empty((T, B), dtype=torch.float32, device=reward.device)
     adv = torch.empty_like(ret)
-    with torch.cuda.device(reward.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _build.library().cdll.vtrace_returns_adv_f32(
-            is_weights.data_ptr(), reward.data_ptr(), value.data_ptr(),
-            ret.data_ptr(), adv.data_ptr(), T, B, *_scalars(*clips), stream)
-    _build.check_status(name, status)
+    _launch_vtrace(name, _build.library().cdll.vtrace_returns_adv_f32,
+                   (is_weights, reward, value, ret, adv), T, B, clips, cols,
+                   chunks)
     vtrace_returns_adv.launches += 1
     return ret, adv
 

@@ -183,19 +183,67 @@ def test_lstm_layer_takes_every_width_up_to_726(cuda):
             _close_to_plain(args, got, want, True)
 
 
-@pytest.mark.parametrize("T,B", [(36, 136), (37, 9)])
-def test_vtrace_kernels_match_plain(cuda, T, B):
+# The kernels chunk T by 8 steps, up to 16 chunks to a 128-step super-tile,
+# and tile B by 32, 16 or 8 columns (kernels.vtrace_launch_shape): T = 1 and
+# 65 and B = 5, 9, 33 and 4100 leave partial chunks and tiles, T = 1000 walks
+# eight super-tiles, and (16, 8), (32, 32), (32, 256) are the AlphaStar
+# step's, the B=32 train leg's and the forward's shapes.  "wide": IS spread
+# over 0.1-10 so that every clip binds; "unit": gamma = lambda = 1 and IS >=
+# 1, so every a_t = 1 and the chunk products never shrink.
+@pytest.mark.parametrize("T,B,case", [
+    (36, 136, "default"), (37, 9, "default"), (1, 5, "default"),
+    (16, 8, "default"), (32, 32, "default"), (32, 256, "default"),
+    (65, 33, "default"), (1000, 4100, "default"), (65, 33, "wide"),
+    (200, 64, "unit")])
+def test_vtrace_kernels_match_plain(cuda, T, B, case):
     is_w, lp, reward, value = _vtrace_inputs(9, T, B, cuda)
-    got = kernels.vtrace_losses(is_w, lp, reward, value, *CLIPS)
-    again = kernels.vtrace_losses(is_w, lp, reward, value, *CLIPS)
-    want = kernels.vtrace_losses_plain(is_w, lp, reward, value, *CLIPS)
+    clips = CLIPS
+    if case == "wide":
+        rng = np.random.default_rng(19)
+        is_w = torch.from_numpy(np.exp(rng.uniform(
+            np.log(0.1), np.log(10.0), (T, B))).astype(np.float32)).to(cuda)
+        clips = (0.99, 0.95, 1.2, 0.9, 1.0)
+    elif case == "unit":
+        is_w = 1.0 / is_w.clamp(max=1.0)
+        clips = (1.0, 1.0, 1.0, 1.0, 1.0)
+    before = (kernels.vtrace_losses.launches,
+              kernels.vtrace_returns_adv.launches)
+    got = kernels.vtrace_losses(is_w, lp, reward, value, *clips)
+    again = kernels.vtrace_losses(is_w, lp, reward, value, *clips)
+    want = kernels.vtrace_losses_plain(is_w, lp, reward, value, *clips)
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)              # no atomics: bitwise repeatable
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
-    got = kernels.vtrace_returns_adv(is_w, reward, value, *CLIPS)
-    want = kernels.vtrace_returns_adv_plain(is_w, reward, value, *CLIPS)
-    for g, w in zip(got, want):
+    got = kernels.vtrace_returns_adv(is_w, reward, value, *clips)
+    again = kernels.vtrace_returns_adv(is_w, reward, value, *clips)
+    want = kernels.vtrace_returns_adv_plain(is_w, reward, value, *clips)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    assert (kernels.vtrace_losses.launches,
+            kernels.vtrace_returns_adv.launches) == (before[0] + 2,
+                                                     before[1] + 2)
+
+
+def test_vtrace_kernels_take_every_tiling(cuda):
+    """Any columns x chunks tiling up to 512 threads gives the plain
+    version's results: one chunk or one column per CTA, a partial warp, and
+    the tilings vtrace_launch_shape chooses at other shapes."""
+    T, B = 100, 70
+    is_w, lp, reward, value = _vtrace_inputs(12, T, B, cuda)
+    want_l = kernels.vtrace_losses_plain(is_w, lp, reward, value, *CLIPS)
+    want_r = kernels.vtrace_returns_adv_plain(is_w, reward, value, *CLIPS)
+    for cols, chunks in ((1, 1), (1, 16), (8, 1), (8, 3), (16, 16),
+                         (32, 16), (32, 1), (5, 7)):
+        tiling = {"cols": cols, "chunks": chunks}
+        got = kernels.rl_scans._vtrace_losses_cuda(
+            is_w, lp, reward, value, *CLIPS, **tiling)
+        torch.testing.assert_close(got, want_l, rtol=RTOL, atol=ATOL,
+                                   msg=str(tiling))
+        got = kernels.rl_scans._vtrace_returns_adv_cuda(
+            is_w, reward, value, *CLIPS, **tiling)
+        torch.testing.assert_close(got, want_r, rtol=RTOL, atol=ATOL,
+                                   msg=str(tiling))
 
 
 def test_cuda_wrappers_raise_on_what_they_cannot_take(cuda):

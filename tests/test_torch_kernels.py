@@ -91,7 +91,8 @@ def test_lstm_layer_plain_keeps_autograd():
                for a in args)
 
 
-@pytest.mark.parametrize("T,B", [(36, 136), (128, 96)])
+# T = 63 and 65 straddle the CUDA kernels' 64-step span of 8 chunks.
+@pytest.mark.parametrize("T,B", [(36, 136), (128, 96), (63, 9), (65, 9)])
 def test_vtrace_losses_plain_matches_pallas(interpret, T, B):
     is_w, lp, reward, value = _vtrace_inputs(3, T, B)
     want = jax_rl_scans.vtrace_losses_pallas(
@@ -123,8 +124,8 @@ def test_vtrace_losses_plain_gradients_match_pallas(interpret):
                                rtol=RTOL, atol=1e-7)
 
 
-# (37, 9): odd T and a B far below any block size.
-@pytest.mark.parametrize("T,B", [(36, 136), (37, 9)])
+# (37, 9): odd T and a B far below any block size; T = 63 and 65 as above.
+@pytest.mark.parametrize("T,B", [(36, 136), (37, 9), (63, 9), (65, 9)])
 def test_vtrace_returns_adv_plain_matches_pallas(interpret, T, B):
     is_w, _, reward, value = _vtrace_inputs(5, T, B)
     want = jax_rl_scans.vtrace_returns_adv_pallas(
@@ -134,6 +135,25 @@ def test_vtrace_returns_adv_plain_matches_pallas(interpret, T, B):
     for name, g, w in zip(("vs", "adv"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
                                    atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("B", [1, 8, 256, 4096, 4100])
+@pytest.mark.parametrize("T", [1, 16, 32, 65, 1024, 4099])
+def test_vtrace_launch_shape_covers_the_planes(T, B):
+    """The V-trace kernels' tiles cover T and B, a CTA holds at most 512
+    threads and its shared memory fits the H100's 227 KB, and wide B keeps
+    32-column tiles (coalesced 128-byte rows) while narrow B takes narrower
+    tiles for more CTAs."""
+    shape = kernels.vtrace_launch_shape(T, B)
+    assert shape["grid"] >= 1 and shape["grid"] * shape["cols"] >= B
+    assert (shape["grid"] - 1) * shape["cols"] < B
+    steps, tiles = shape["chunks"] * shape["chunk"], shape["super_tiles"]
+    assert shape["super_tile_steps"] == steps
+    assert (tiles - 1) * steps < T <= tiles * steps
+    assert shape["threads"] == shape["cols"] * shape["chunks"] <= 512
+    assert shape["smem_bytes"] <= 232448
+    assert shape["cols"] == (32 if B >= 4096 else 8)
+    assert shape["chunks"] == min(-(-T // 8), 16)
 
 
 def test_non_cpu_inputs_go_to_the_kernel_checks_not_the_plain_version():
