@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (di_hpc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # no arguments; needs one CUDA card
-    python3 chip_smoke.py --digests    # only the LSTM kernels' output
-                                       # digests and ptxas lines
+    python3 chip_smoke.py --digests    # only the LSTM and scan kernels'
+                                       # output digests and ptxas lines
     python3 chip_smoke.py --profile    # only phase 9 (profile)
 
 Phases, each printing one JSON line (`{"phase": ...}`):
@@ -50,6 +50,15 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 zero, a scalar and a (B,) boundary, upgo_advantages,
                 upgo_loss) run at T=1024, B=4096, at a ragged B and at T=1;
                 td_lambda_loss and upgo_loss must be bitwise repeatable.
+                The two chunked scan kernels (linear_scan, td_lambda_loss)
+                print their launch (columns and chunks per CTA, super-tiles,
+                ptxas' registers and spills), time the chosen tiling
+                against 16x16 and 32x8 in turns at T=1024, and are held
+                against their plain versions at every shape of the card
+                tests (T = 1, 7, 8, 9, 65, 1000, 1024 x B = 1, 5, 33, 4100;
+                both directions with a zero, a scalar and a large (B,)
+                boundary; the loss at gamma*lambda = 0, lambda = 1 and
+                gamma = 1, bitwise repeatable).
                 The bf16 instantiations of the three LSTM kernels run at the
                 f32 rows' shapes (the forward's rows but H=510, the
                 backward's rows),
@@ -79,6 +88,11 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 synchronized work, median of 7 steps).  A second leg at
                 B=32 routes the backward through V1 and is checked the same
                 way, so every ported kernel launches on one of the paths.
+                Both legs must route every LSTM layer to the kernels
+                (`network.lstm_fused.routes`).  Then `network.lstm_fused`
+                with a gradient at H=30 (S=8, B=4, 2 layers), which the
+                backward kernels cannot take: every layer must take the
+                recurrent path, launch no kernel, and agree with the CPU.
   6. bf16    -- the mixed-precision path, counts set to 0 just before it and
                 read just after: `make_train_step(compute_dtype=
                 torch.bfloat16)` at the flagship's full width, T=32, B=256
@@ -123,15 +137,18 @@ Phases, each printing one JSON line (`{"phase": ...}`):
   9. profile -- torch.profiler over one more run of each of the timed calls
                 (forward, serving loop, V-trace, train step, the three
                 on-policy calls, the UPGO loss, the AlphaStar train step and
-                the bf16 train step) and of the f32 and bf16 train steps at
-                B=32: device busy time, idle share of the window and the
-                top kernels by device time.
+                the bf16 train step), of the f32 and bf16 train steps at
+                B=32 and of phase upgo's four scan entry points: device
+                busy time, idle share of the window and the top kernels by
+                device time.
 
 Then one `{"kernels": [...]}` line, the nvidia-smi line, and, last, the
 contract line `{"ok": true, "device": {...}}`.  With `--digests` it prints
 only the sha256 of the LSTM kernels' outputs at the rows' shapes (the
-backward's inputs from the plain forward) and their ptxas lines: run in two
-checkouts, they show whether a change left those kernels bitwise the same.
+backward's inputs from the plain forward) and their ptxas lines, and of the
+scan kernels' (2, 3, 6-12) outputs at T=1024, B=4096 and at the ragged
+T=1000, B=4100: run in two checkouts, they show whether a change left those
+kernels bitwise the same.
 With `--profile` it prints only phase 9's line, which runs in an older
 checkout too.  Any
 failure prints its phase
@@ -392,37 +409,43 @@ def vtrace_bounds(T, B):
 VTRACE_ROWS = ((32, 256), (1024, 4096), (32, 32), (16, 8))
 VTRACE_CLIPS = (0.99, 0.95, 1.0, 1.0, 1.0)
 # The tiling timed against the chosen one at the north-star shape.
-VTRACE_OTHER = {"cols": 32, "chunks": 8}
+VTRACE_OTHER = ({"cols": 32, "chunks": 8},)
+# Both V-trace instantiations: label -> (kernel, tag of the mangled name).
+VTRACE_INSTANCES = {"losses": ("vtrace_chunked_kernel", "ILb1E"),
+                    "returns_adv": ("vtrace_chunked_kernel", "ILb0E")}
 
 
-def vtrace_launch_shape(T, B, **tiling) -> dict:
-    """kernels.vtrace_launch_shape on this card."""
-    return kernels.vtrace_launch_shape(
-        T, B, torch.cuda.get_device_properties(0).multi_processor_count,
-        **tiling)
+# The tilings timed against the chosen one at T=1024, B=4096 for kernels 6
+# and 9.
+SCAN_OTHER_TILINGS = ({"cols": 16, "chunks": 16}, {"cols": 32, "chunks": 8})
 
 
-def vtrace_launch_info(T, B) -> dict:
-    """The V-trace kernels' launch at (T, B) and ptxas' register and spill
-    lines of both instantiations."""
+def chunked_launch_info(shape_fn, T, B, instances) -> dict:
+    """A kernel's launch at (T, B) on this card (shape_fn: one of the
+    kernels chunked over T's launch-shape functions) and ptxas' register and
+    spill lines of its instantiations (`instances`: label -> (kernel, tag
+    of the mangled name))."""
     log = _build.library().build_log
-    return {**vtrace_launch_shape(T, B),
-            "ptxas": {name: ptxas_of(log, "vtrace_chunked_kernel", tag)
-                      for name, tag in (("losses", "ILb1E"),
-                                        ("returns_adv", "ILb0E"))}}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {**shape_fn(T, B, sms),
+            "ptxas": {label: ptxas_of(log, kernel, tag)
+                      for label, (kernel, tag) in instances.items()}}
 
 
-def vtrace_candidates(launch, args) -> dict:
-    """One V-trace kernel's cold time with the chosen tiling and with
-    VTRACE_OTHER, in turns (chosen, other, other, chosen)."""
-    T, B = args[-1].shape[0] - 1, args[-1].shape[1]
-    shape = vtrace_launch_shape(T, B)
+def chunked_candidates(launch, shape_fn, T, B,
+                       others=SCAN_OTHER_TILINGS) -> dict:
+    """The cold time of launch(cols=..., chunks=...) at the chosen tiling
+    and at each of `others`, in turns (chosen, the others, the others again
+    in reverse, chosen), each with its launch shape."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shape = shape_fn(T, B, sms)
     chosen = {"cols": shape["cols"], "chunks": shape["chunks"]}
+    others = [t for t in others if t != chosen]
     out = {}
-    for tiling in (chosen, VTRACE_OTHER, VTRACE_OTHER, chosen):
-        ms = cold_ms(lambda: launch(*args, *VTRACE_CLIPS, **tiling))
+    for tiling in (chosen, *others, *reversed(others), chosen):
+        ms = cold_ms(lambda: launch(**tiling))
         out.setdefault(f"{tiling['cols']}x{tiling['chunks']}", {
-            **vtrace_launch_shape(T, B, **tiling), "ms": []})["ms"].append(ms)
+            **shape_fn(T, B, sms, **tiling), "ms": []})["ms"].append(ms)
     return out
 
 
@@ -449,7 +472,8 @@ def vtrace_kernel_rows(rng, dev) -> dict:
                 raise AssertionError(f"{name} T={T} B={B}: repeated runs "
                                      f"differ")
             row = {"shape": f"T={T},B={B}", "bitwise_repeatable": True,
-                   "launch": vtrace_launch_info(T, B),
+                   "launch": chunked_launch_info(
+                       kernels.vtrace_launch_shape, T, B, VTRACE_INSTANCES),
                    **compare(f"{name} T={T},B={B}", got,
                              plain(*args, *clips))}
             row.update(kernel_ms(lambda: wrapper(*args, *clips),
@@ -459,8 +483,10 @@ def vtrace_kernel_rows(rng, dev) -> dict:
             row["bound_ms"], row["bound_by"] = bound_ms(
                 *bounds[name == "vtrace_returns_adv"])
             if T == 1024:
-                row["candidates"] = vtrace_candidates(
-                    getattr(kernels.rl_scans, f"_{name}_cuda"), args)
+                launch = getattr(kernels.rl_scans, f"_{name}_cuda")
+                row["candidates"] = chunked_candidates(
+                    lambda **tiling: launch(*args, *clips, **tiling),
+                    kernels.vtrace_launch_shape, T, B, VTRACE_OTHER)
             key = f"{name} T={T}" + ("" if (T, B) in VTRACE_ROWS[:2]
                                      else f" B={B}")
             rows[key] = row
@@ -485,8 +511,9 @@ SCAN_ARGS = {"gae": (0.99, 0.97), "lambda_returns": (0.9, 0.8),
 def scan_kernel_rows(rng, dev) -> dict:
     """The four scan kernels against their plain versions: at T=1024,
     B=4096 (timed, with bounds), at a ragged B (not a multiple of the
-    32-column block) and at T=1; td_lambda_loss must be bitwise
-    repeatable."""
+    32-column block) and at T=1; td_lambda_loss must be bitwise repeatable,
+    and its rows print their launch (tiling, ptxas), the T=1024 row also
+    timing the chosen tiling against SCAN_OTHER_TILINGS."""
     rows = {}
     for T, B in ((1024, 4096), (37, 1000), (1, 77)):
         value = torch.from_numpy(rng.standard_normal(
@@ -508,6 +535,10 @@ def scan_kernel_rows(rng, dev) -> dict:
                 row["bitwise_repeatable"] = True
             row.update(compare(f"{name} T={T},B={B}", [got],
                                [plain(value, reward, *scalars)]))
+            if name == "td_lambda_loss":
+                row["launch"] = chunked_launch_info(
+                    kernels.td_lambda_launch_shape, T, B,
+                    {"loss": ("td_lambda_loss_kernel", "")})
             if T == 1024:
                 row.update(kernel_ms(lambda: wrapper(value, reward,
                                                      *scalars), per_rep=10))
@@ -515,8 +546,65 @@ def scan_kernel_rows(rng, dev) -> dict:
                                                         *scalars), 3,
                                           warmup=1)
                 row["bound_ms"], row["bound_by"] = bound_ms(*bounds[name])
+                if name == "td_lambda_loss":
+                    row["candidates"] = chunked_candidates(
+                        lambda **tiling: kernels.rl_scans._td_lambda_loss_cuda(
+                            value, reward, *scalars, **tiling),
+                        kernels.td_lambda_launch_shape, T, B)
             rows[f"{name} T={T}"] = row
     return rows
+
+
+# The card tests' shapes for kernels 6 and 9 (tests/test_torch_gpu.py):
+# partial chunks, super-tiles and column tiles.
+CHUNKED_T = (1, 7, 8, 9, 65, 1000, 1024)
+CHUNKED_B = (1, 5, 33, 4100)
+# (gamma, lambda) of the TD(lambda) loss: gamma*lambda = 0, lambda = 1,
+# gamma = 1.
+TD_CASES = ((0.9, 0.8), (0.9, 0.0), (0.95, 1.0), (1.0, 0.8), (1.0, 1.0))
+
+
+def chunked_scan_sweep(dev) -> dict:
+    """Kernels 6 and 9 against their plain versions at every (T, B) of
+    CHUNKED_T x CHUNKED_B, from their own seed: the linear recurrence both
+    ways with a zero, a scalar and a large (B,) boundary (steps past T must
+    be the identity, or the reverse walk loses the boundary), the TD(lambda)
+    loss at TD_CASES, bitwise repeatable.  Returns the largest errors."""
+    rng = np.random.default_rng(SEED + 18)
+    worst = {"linear_scan": 0.0, "td_lambda_loss": 0.0}
+    shapes = 0
+    for T in CHUNKED_T:
+        for B in CHUNKED_B:
+            f = lambda *s: torch.from_numpy(rng.standard_normal(
+                s, dtype=np.float32)).to(dev)
+            a, b = f(T, B), torch.from_numpy(rng.uniform(
+                0.5, 1.0, (T, B)).astype(np.float32)).to(dev)
+            for y in (None, torch.tensor(3.0, device=dev),
+                      100 * torch.linspace(-1, 1, B, device=dev)):
+                for reverse in (True, False):
+                    got = kernels.linear_scan(a, b, y, reverse)
+                    want = kernels.linear_scan_plain(
+                        a, b, None if y is None else y.expand(B), reverse)
+                    err = compare(f"linear_scan T={T} B={B} {reverse}",
+                                  [got], [want])["max_abs_err"]
+                    worst["linear_scan"] = max(worst["linear_scan"], err)
+            value, reward = f(T + 1, B), f(T, B)
+            for gamma, lambda_ in TD_CASES:
+                got = kernels.td_lambda_loss(value, reward, gamma, lambda_)
+                again = kernels.td_lambda_loss(value, reward, gamma,
+                                               lambda_)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"td_lambda_loss T={T} B={B}: "
+                                         f"repeated runs differ")
+                want = kernels.td_lambda_loss_plain(value, reward, gamma,
+                                                    lambda_)
+                err = compare(f"td_lambda_loss T={T} B={B} {gamma} "
+                              f"{lambda_}", [got], [want])["max_abs_err"]
+                worst["td_lambda_loss"] = max(worst["td_lambda_loss"], err)
+            shapes += 1
+    return {"shapes": shapes, "T": CHUNKED_T, "B": CHUNKED_B,
+            "td_cases": TD_CASES, "bitwise_repeatable": True,
+            "max_abs_err": worst}
 
 
 def linear_scan_bound(T, B, boundary: bool):
@@ -537,8 +625,12 @@ def upgo_bounds(T, B):
 def full_plane_kernel_rows(rng, dev) -> dict:
     """Kernels 6, 11 and 12 against their plain versions at T=1024, B=4096
     (timed, with bounds), at a ragged B and at T=1; the linear recurrence in
-    both directions with a zero, a scalar and a (B,) boundary; upgo_loss
-    must be bitwise repeatable."""
+    both directions with a zero, a scalar and a (B,) boundary, each row with
+    its launch (tiling, ptxas), the T=1024 rows also timing the chosen
+    tiling against SCAN_OTHER_TILINGS; upgo_loss must be bitwise
+    repeatable."""
+    from di_hpc_tpu_torch.kernels.linear_scan import _linear_scan
+
     rows = {}
     f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
                                     ).to(dev)
@@ -558,6 +650,10 @@ def full_plane_kernel_rows(rng, dev) -> dict:
                     f"linear_scan {direction} T={T} {kind}", [got], [want])
             row["max_abs_err"] = max(c["max_abs_err"]
                                      for c in row["vs_plain"].values())
+            row["launch"] = chunked_launch_info(
+                kernels.linear_scan_launch_shape, T, B,
+                {direction: ("linear_scan_chunked_kernel",
+                             f"ILb{int(reverse)}E")})
             if T == 1024:
                 row.update(kernel_ms(lambda: kernels.linear_scan(
                     a, b, None, reverse), per_rep=10))
@@ -565,6 +661,10 @@ def full_plane_kernel_rows(rng, dev) -> dict:
                     a, b, None, reverse), 3, warmup=1)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     *linear_scan_bound(T, B, boundary=False))
+                row["candidates"] = chunked_candidates(
+                    lambda **tiling: _linear_scan(a, b, None, reverse,
+                                                  **tiling),
+                    kernels.linear_scan_launch_shape, T, B)
             rows[f"linear_scan {direction} T={T}"] = row
 
         rhos = torch.exp(0.3 * f(T, B))
@@ -713,6 +813,7 @@ def phase_kernels(dev) -> dict:
         rows.update(scan_kernel_rows(rng, dev))
         rows.update(full_plane_kernel_rows(rng, dev))
         rows.update(bf16_kernel_rows(rng, dev))
+        rows["chunked_scan_sweep"] = chunked_scan_sweep(dev)
     return rows
 
 
@@ -1177,15 +1278,20 @@ def phase_train(dev) -> dict:
         batch_np = train_batch(rng, B)
         params, step, batch = train_setup(arrays, batch_np, dev)
         kernels.reset_launch_counts()
+        network.reset_route_counts()
         metrics = step(params, batch)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
+        routes = dict(network.lstm_fused.routes)
         check_launched(f"train B={B}", launches, ("lstm_layer_fused", bwd,
                                                   "vtrace_losses",
                                                   "vtrace_returns_adv"))
+        if routes != {"kernel": LAYERS, "recurrent": 0}:
+            raise AssertionError(f"train B={B}: the layers' routes are "
+                                 f"{routes}, not the kernels")
         ref_params, ref_step, ref_batch = train_setup(arrays, batch_np, cpu)
         ref = ref_step(ref_params, ref_batch)
-        leg = {"launches": launches,
+        leg = {"launches": launches, "lstm_fused_routes": routes,
                "metrics": {k: float(v) for k, v in metrics.items()},
                "metrics_vs_cpu": compare(f"train B={B} metrics",
                                          list(metrics.values()),
@@ -1203,7 +1309,55 @@ def phase_train(dev) -> dict:
                 lambda: step(params, batch), TRAIN_TIMED_STEPS)
             leg["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         out[f"B={B}"] = leg
+    out["routing"] = routed_layer_leg(dev)
     return out
+
+
+# network.lstm_fused with a gradient at a width the kernels cannot take
+# backwards (H % 4 != 0): each layer takes the recurrent path on the card.
+ROUTE_CFG = {"S": 8, "B": 4, "I": 32, "H": 30, "L": 2}
+
+
+def routed_layer(arrays, dev):
+    """lstm_fused over ROUTE_CFG's shapes on dev with the gradient of a fixed
+    loss: [y, h, c, d inputs, d every parameter]."""
+    params = network.LSTMParams(*(
+        tuple(torch.from_numpy(w).to(dev).requires_grad_() for w in f)
+        if isinstance(f, tuple) else
+        torch.from_numpy(f).to(dev).requires_grad_() for f in arrays[:-1]))
+    x = torch.from_numpy(arrays[-1]).to(dev).requires_grad_()
+    y, (h, c) = network.lstm_fused(params, x)
+    ((y * torch.cos(y)).sum() + (h ** 2).sum() + torch.sin(c).sum()
+     ).backward()
+    leaves = [x, *params.wx, *params.wh, params.bias, *params[3:]]
+    return [y, h, c, *(t.grad for t in leaves)]
+
+
+def routed_layer_leg(dev) -> dict:
+    """ROUTE_CFG's lstm_fused with its gradient on the card, counts set to 0
+    just before it and read just after: every layer must take the recurrent
+    path and launch no kernel; outputs and gradients against the CPU (whose
+    kernel wrappers run their plain versions)."""
+    rng = np.random.default_rng(SEED + 19)
+    S, B, I, H, L = (ROUTE_CFG[k] for k in "SBIHL")
+    g = 1 / np.sqrt(H)
+    u = lambda *s: rng.uniform(-g, g, s).astype(np.float32)
+    n = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    arrays = (tuple(u(I if l == 0 else H, 4 * H) for l in range(L)),
+              tuple(u(H, 4 * H) for _ in range(L)), u(L, 4 * H),
+              1 + 0.1 * n(L, 4 * H), 0.1 * n(L, 4 * H),
+              1 + 0.1 * n(L, 4 * H), 0.1 * n(L, 4 * H), n(S, B, I))
+    kernels.reset_launch_counts()
+    network.reset_route_counts()
+    got = routed_layer(arrays, dev)
+    torch.cuda.synchronize()
+    launches, routes = kernels.launch_counts(), dict(network.lstm_fused.routes)
+    if routes != {"kernel": 0, "recurrent": L} or any(launches.values()):
+        raise AssertionError(f"routing: routes {routes}, launches "
+                             f"{launches}")
+    want = routed_layer(arrays, torch.device("cpu"))
+    return {"shape": ROUTE_CFG, "lstm_fused_routes": routes,
+            "vs_cpu": compare("routing", got, want, atol_rel=GRAD_ATOL_REL)}
 
 
 # ------------------------------------------------------------ phase 6 ----
@@ -1679,18 +1833,24 @@ def scatter_fwd_bwd(x, mode):
     return out.detach(), xs.grad
 
 
+def run_scan_entry_points(x) -> dict:
+    """The scan entry points under "auto" at T=1024, B=4096, each through
+    kernel 6: the linear recurrence both ways, with a (B,) boundary and a
+    row-constant b; the lambda-returns with (T, B) gamma and lambda planes;
+    the UPGO returns."""
+    return {"linear_reverse": ops.linear_recurrence_reverse(
+                x["a"], x["b"], x["y"]),
+            "linear_forward": ops.linear_recurrence_forward(
+                x["a"], x["b_row"], 0.5),
+            "lambda_returns": ops.generalized_lambda_returns(
+                x["value"], x["reward"], x["gammas"], x["lambdas"]),
+            "upgo_returns": ops.upgo_returns(x["reward"], x["value"])}
+
+
 def run_upgo_ops(x) -> dict:
-    """The scan entry points under "auto" (the linear recurrence both ways,
-    with a (B,) boundary and a row-constant b; the lambda-returns with (T, B)
-    gamma and lambda planes; the UPGO returns), the UPGO loss with its
-    gradient and both scatter modes with theirs."""
-    out = {"linear_reverse": ops.linear_recurrence_reverse(
-               x["a"], x["b"], x["y"]),
-           "linear_forward": ops.linear_recurrence_forward(
-               x["a"], x["b_row"], 0.5),
-           "lambda_returns": ops.generalized_lambda_returns(
-               x["value"], x["reward"], x["gammas"], x["lambdas"]),
-           "upgo_returns": ops.upgo_returns(x["reward"], x["value"])}
+    """The scan entry points (run_scan_entry_points), the UPGO loss with
+    its gradient and both scatter modes with theirs."""
+    out = run_scan_entry_points(x)
     out["upgo_loss"], out["upgo_dlogits"] = upgo_loss_fwd_bwd(x)
     for mode in ("add", "cover"):
         out[f"scatter_{mode}"], out[f"scatter_{mode}_dx"] = scatter_fwd_bwd(
@@ -1911,7 +2071,8 @@ def profile_one(fn) -> dict:
 def phase_profile(dev) -> dict:
     """profile_one over each timed call of the slice, the train step at
     B=256 and at B=32 (V1) in float32 and in bf16, the three on-policy
-    calls, the UPGO loss and the AlphaStar train step."""
+    calls, the UPGO loss, the AlphaStar train step and the four scan entry
+    points of phase upgo (kernel 6's launches)."""
     _, params, obs, serve_obs, _, _, _, big_x = slice_inputs(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
@@ -1951,6 +2112,8 @@ def phase_profile(dev) -> dict:
     for name in ("upgo_loss_fwd_bwd_T128_B512_N128",
                  "alphastar_train_step_T16_B8"):
         out[name] = profile_one(timed[name])
+    out["scan_entry_points_T1024_B4096"] = profile_one(
+        lambda: run_scan_entry_points(x))
     return out
 
 
@@ -2000,9 +2163,10 @@ def digests(dev) -> dict:
     """sha256 of the LSTM kernels' outputs -- kernel 1 (with and without
     the stash) at FWD_DIGEST_ROWS, V2 and V1 at BWD_ROWS' shapes; f32 and
     bf16 -- on inputs from the plain forward (so the backward's do not
-    depend on kernel 1), and ptxas' register and spill lines of their
-    instantiations.  Run in two checkouts, the digests show whether a change
-    left these kernels bitwise the same."""
+    depend on kernel 1), ptxas' register and spill lines of their
+    instantiations, and the scan kernels' digests (scan_digests).  Run in
+    two checkouts, the digests show whether a change left these kernels
+    bitwise the same."""
     import hashlib
 
     def sha(tensors):
@@ -2042,6 +2206,47 @@ def digests(dev) -> dict:
                    "lstm_layer_bwd_v2_kernel", "lstm_layer_bwd_v1_kernel"):
         for tag in ("If", "I13__nv_bfloat16"):
             out[f"ptxas {kernel}{tag}"] = ptxas_of(lib.build_log, kernel, tag)
+    out.update(scan_digests(dev, sha))
+    return out
+
+
+# The scan kernels' digest shapes: the north-star plane and a ragged one
+# (a partial super-tile and a partial column tile).
+SCAN_DIGEST_SHAPES = ((1024, 4096), (1000, 4100))
+
+
+def scan_digests(dev, sha) -> dict:
+    """sha256 of the outputs of the scan kernels (2, 3, 6-12) at
+    SCAN_DIGEST_SHAPES, through their wrappers, on inputs from one seed.
+    Only the wrappers' public arguments are used, so an older checkout with
+    this script copied in gives its own kernels' digests."""
+    out = {}
+    rng = np.random.default_rng(SEED + 20)
+    for T, B in SCAN_DIGEST_SHAPES:
+        f = lambda *s: torch.from_numpy(rng.standard_normal(
+            s, dtype=np.float32)).to(dev)
+        is_w, lp, reward, value = (torch.exp(0.3 * f(T, B)),
+                                   -f(T, B).abs(), f(T, B), f(T + 1, B))
+        a, y = f(T, B), f(B)
+        b = torch.from_numpy(rng.uniform(0.5, 1.0, (T, B)).astype(
+            np.float32)).to(dev)
+        runs = {
+            "vtrace_losses": lambda: kernels.vtrace_losses(
+                is_w, lp, reward, value, *VTRACE_CLIPS),
+            "vtrace_returns_adv": lambda: kernels.vtrace_returns_adv(
+                is_w, reward, value, *VTRACE_CLIPS),
+            "linear_scan reverse": lambda: [kernels.linear_scan(
+                a, b, y, True)],
+            "linear_scan forward": lambda: [kernels.linear_scan(
+                a, b, y, False)],
+            **{name: (lambda name=name: [getattr(kernels, name)(
+                value, reward, *SCAN_ARGS[name])]) for name in SCAN_ARGS},
+            "upgo_advantages": lambda: [kernels.upgo_advantages(
+                is_w, reward, value)],
+            "upgo_loss": lambda: [kernels.upgo_loss(is_w, lp, reward,
+                                                    value)]}
+        for name, run in runs.items():
+            out[f"{name} T={T} B={B}"] = sha([t.reshape(-1) for t in run()])
     return out
 
 

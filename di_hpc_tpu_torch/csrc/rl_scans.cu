@@ -1,5 +1,5 @@
 // Row-constant-coefficient reverse recurrences: GAE, the lambda-returns and
-// the TD(lambda) loss and error, one thread per batch column.
+// the TD(lambda) loss and error.
 //
 // Replaces four kernels of di_hpc_tpu/pallas_kernels/rl_scans.py, which all
 // run _suffix_scan with a (T, 1) coefficient:
@@ -10,9 +10,9 @@
 //   - _lret_kernel, _tdl_loss_kernel, _tdl_err_kernel, which share _lret_body:
 //     ret_{T-1} = r_{T-1} + gamma*V_T and, below it,
 //     ret_t = r_t + (gamma - gamma*lambda)*V_{t+1} + gamma*lambda*ret_{t+1}.
-//     One device loop, templated on its epilogue, serves all three: it writes
-//     the returns plane, sums (ret_t - V_t)^2 over t, or writes e_t = ret_t -
-//     V_t.
+//     lambda_returns_kernel, templated on its epilogue, writes the returns
+//     plane or e_t = ret_t - V_t; td_lambda_loss_kernel sums (ret_t - V_t)^2
+//     over t.
 // And the two UPGO kernels, whose coefficient is a full (T, B) plane of
 // binary lambdas derived from the data (_upgo_kernel, _upgo_loss_kernel):
 // one device loop templated on its epilogue, further below.
@@ -22,20 +22,27 @@
 // error kernels move 50.3 MB each (15 us at 3.35 TB/s), the loss kernel
 // 33.6 MB (10 us), each UPGO kernel 67.1 MB (20 us).
 //
-// Design, as csrc/vtrace.cu: one thread owns one batch column and walks time
-// backwards, so the recurrence needs no scan tree and no cross-thread
-// traffic; neighbouring threads own neighbouring columns, so every load and
-// store is coalesced across the warp.  The loop loads kUnroll steps of every
-// stream before it computes them, to keep enough loads in flight.  Columns
-// past B neither load nor store.  The loss kernel writes one partial per
-// column into a (1, B) buffer that the caller sums in a fixed order (no float
-// atomics), so repeated runs are bitwise equal and a ragged B adds nothing to
-// the sum.  At B=4096 that is only 4096 threads on 132 SMs; chunking over T
-// to fill the card is later work.
+// Two walks.  The TD(lambda) loss (td_lambda_loss_kernel) takes the chunked
+// walk of csrc/vtrace.cu, with its pieces from csrc/chunked_scan.cuh: a CTA
+// owns `cols` columns x `chunks` chunks of 8 steps, loads one super-tile
+// ahead, composes each chunk's affine pair, folds the pairs in one fixed
+// order and re-walks each chunk from its carry-in (the design note at that
+// kernel).  GAE, the returns and error planes and UPGO still walk one column
+// with one thread, backwards, loading kUnroll steps of every stream before
+// computing them; neighbouring threads own neighbouring columns, so every
+// load and store is coalesced.  At T=1024, B=4096 that is 64 dependent round
+// trips to memory per column on only 4096 threads, 6-11x their bounds;
+// they stay on this walk, bit for bit, until each is redesigned in turn.
+// Columns past B neither load nor store.  The loss kernels write one partial
+// per column into a (1, B) buffer that the caller sums in a fixed order (no
+// float atomics), so repeated runs are bitwise equal and a ragged B adds
+// nothing to the sum.
 
-#include <cuda_runtime.h>
+#include "chunked_scan.cuh"
 
 namespace {
+
+using namespace chunked_scan;
 
 constexpr int kThreads = 32;
 constexpr int kUnroll = 16;
@@ -75,7 +82,7 @@ gae_kernel(const float* __restrict__ value, const float* __restrict__ reward,
   }
 }
 
-enum class Epilogue { kReturns, kLossSum, kError };
+enum class Epilogue { kReturns, kError };
 
 template <Epilogue kEpi>
 __global__ void __launch_bounds__(kThreads)
@@ -91,7 +98,6 @@ lambda_returns_kernel(const float* __restrict__ value,
   // (_lret_body's b_{T-1} = 0); every earlier step gamma - gamma*lambda and
   // gamma*lambda.
   float g_eff = gamma, carry = 0.f;
-  float sum = 0.f;
   for (int t0 = T - 1; t0 >= 0; t0 -= kUnroll) {
     float rv[kUnroll], vv[kUnroll];
 #pragma unroll
@@ -114,12 +120,10 @@ lambda_returns_kernel(const float* __restrict__ value,
         const float e = ret - vv[u];
         if (kEpi == Epilogue::kReturns) out[(size_t)t * B + b] = ret;
         if (kEpi == Epilogue::kError) out[(size_t)t * B + b] = e;
-        if (kEpi == Epilogue::kLossSum) sum += e * e;
         v_next = vv[u];
       }
     }
   }
-  if (kEpi == Epilogue::kLossSum) out[b] = sum;
 }
 
 template <Epilogue kEpi>
@@ -130,6 +134,100 @@ int launch_lambda_returns(const float* value, const float* reward, float* out,
   lambda_returns_kernel<kEpi><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       value, reward, out, T, B, gamma, gamma_lambda);
   return (int)cudaGetLastError();
+}
+
+// The TD(lambda) loss partials sum_t (ret_t - V_t)^2, chunked over T.
+//
+// With the boundary ret_T = V_T, every step has the same pair coefficients:
+// ret_t = d_t + gamma*lambda * ret_{t+1}, d_t = r_t + (gamma -
+// gamma*lambda)*V_{t+1}, and the last step, r + (gamma - gamma*lambda)*V_T +
+// gamma*lambda*V_T, is _lret_body's r + gamma*V_T up to one rounding.  A
+// thread's chunk holds kChunk steps of r and the kChunk + 1 value rows V_t0
+// ... V_t0+kChunk (the row past a chunk is the next chunk's first, read again
+// from the L2).  Steps past T are the identity -- d = 0 (r and V load as 0
+// there) and coefficient 1, not gamma*lambda -- so that ret stays V_T above
+// T; zeros would give ret = 0.  The epilogue re-walks each chunk from its
+// carry-in and adds (ret_t - V_t)^2 for t < T to the thread's partial; the
+// chunk partials of a column are summed in shared memory in lane order, and
+// one partial per column goes to the (1, B) buffer.
+struct TdChunk {
+  float r[kChunk], v[kChunk + 1];
+};
+
+__device__ __forceinline__ void load_td_chunk(TdChunk& c,
+                                              const float* __restrict__ value,
+                                              const float* __restrict__ reward,
+                                              int t0, int col, int T, int B) {
+  const bool in_col = col < B && t0 >= 0;
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) {
+    const bool in = in_col && t0 + u < T;
+    c.r[u] = load_once(reward + (in ? (size_t)(t0 + u) * B + col : 0), in);
+  }
+#pragma unroll
+  for (int u = 0; u <= kChunk; ++u) {
+    const bool in = in_col && t0 + u <= T;
+    c.v[u] = load_once(value + (in ? (size_t)(t0 + u) * B + col : 0), in);
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+td_lambda_loss_kernel(const float* __restrict__ value,
+                      const float* __restrict__ reward,
+                      float* __restrict__ parts, int T, int B, float gamma,
+                      float gamma_lambda) {
+  extern __shared__ float smem[];
+  const int cols = blockDim.x, chunks = blockDim.y;
+  const int x = threadIdx.x, own = threadIdx.y;
+  const int col = blockIdx.x * cols + x;
+  const int plane = cols * chunks;
+  // pairs[parity][0: A, 1: D][chunk][col]; sums[chunk][col].
+  float* pairs = smem;
+  float* sums = smem + 4 * plane;
+  const float g_v = gamma - gamma_lambda;
+
+  const int tile = chunks * kChunk;
+  int st = (T + tile - 1) / tile - 1;            // the last super-tile
+  TdChunk cur, nxt;
+  load_td_chunk(cur, value, reward, st * tile + own * kChunk, col, T, B);
+  float carry = col < B ? value[(size_t)T * B + col] : 0.f;   // ret_T = V_T
+  float sum = 0.f;
+  for (int parity = 0; st >= 0; --st, parity ^= 1) {
+    const int t0 = st * tile + own * kChunk;
+    load_td_chunk(nxt, value, reward, t0 - tile, col, T, B);
+
+    float d[kChunk], c[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      d[u] = cur.r[u] + g_v * cur.v[u + 1];
+      c[u] = t0 + u < T ? gamma_lambda : 1.f;
+    }
+    float A, D;
+    compose<true>(d, c, A, D);
+    float* pa = pairs + parity * 2 * plane;
+    pa[own * cols + x] = A;
+    pa[plane + own * cols + x] = D;
+    __syncthreads();
+
+    float ret = fold_pairs<true>(pa, plane, cols, chunks, x, own, carry);
+#pragma unroll
+    for (int u = kChunk - 1; u >= 0; --u) {
+      ret = d[u] + c[u] * ret;
+      if (col < B && t0 + u < T) {
+        const float e = ret - cur.v[u];
+        sum += e * e;
+      }
+    }
+    cur = nxt;
+  }
+
+  sums[own * cols + x] = sum;
+  __syncthreads();
+  if (own == 0 && col < B) {
+    float p = 0.f;
+    for (int q = 0; q < chunks; ++q) p += sums[q * cols + x];
+    parts[col] = p;
+  }
 }
 
 // UPGO (rl_scans.py:_upgo_kernel, _upgo_loss_kernel): the binary-lambda
@@ -224,13 +322,18 @@ int lambda_returns_f32(const float* value, const float* reward, float* ret,
 }
 
 // value (T+1, B), reward (T, B) in; parts (1, B) out: sum_t (ret_t - V_t)^2
-// per column.
+// per column.  One CTA per `cols` columns, `chunks` chunks of 8 steps to a
+// super-tile (cols * chunks <= 512).
 int td_lambda_loss_f32(const float* value, const float* reward, float* parts,
                        int T, int B, float gamma, float gamma_lambda,
-                       void* stream) {
-  return launch_lambda_returns<Epilogue::kLossSum>(value, reward, parts, T, B,
-                                                   gamma, gamma_lambda,
-                                                   stream);
+                       int cols, int chunks, void* stream) {
+  if (chunked_scan::bad_launch(T, B, cols, chunks))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + cols - 1) / cols), block(cols, chunks);
+  const size_t smem = (size_t)5 * cols * chunks * sizeof(float);
+  td_lambda_loss_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      value, reward, parts, T, B, gamma, gamma_lambda);
+  return (int)cudaGetLastError();
 }
 
 // value (T+1, B), reward (T, B) in; e = ret - V[:-1] (T, B) out.

@@ -17,6 +17,7 @@ LSTM kernels also take bf16 streams: their bf16 launches count apart, in
 from .linear_scan import (
     linear_scan,
     linear_scan_forward,
+    linear_scan_launch_shape,
     linear_scan_plain,
     linear_scan_reverse,
 )
@@ -42,6 +43,7 @@ from .rl_scans import (
     lambda_returns_plain,
     td_lambda_err,
     td_lambda_err_plain,
+    td_lambda_launch_shape,
     td_lambda_loss,
     td_lambda_loss_plain,
     upgo_advantages,

@@ -1,5 +1,6 @@
 """First-order linear recurrence over full (T, B) planes: the hand-written
-Hopper kernel (csrc/linear_scan.cu) and its plain PyTorch version.
+Hopper kernel (csrc/linear_scan.cu, chunked over T; its launch
+`linear_scan_launch_shape(T, B)`) and its plain PyTorch version.
 
 Counterpart of di_hpc_tpu/pallas_kernels/linear_scan.py, the scan core's
 method="pallas":
@@ -26,9 +27,20 @@ from typing import Optional
 import torch
 
 from . import _build
+from .rl_scans import _sms, chunked_launch_shape
 
 __all__ = ["linear_scan", "linear_scan_plain", "linear_scan_reverse",
-           "linear_scan_forward"]
+           "linear_scan_forward", "linear_scan_launch_shape"]
+
+
+def linear_scan_launch_shape(T: int, B: int, sms: int = 132, cols=None,
+                             chunks=None) -> dict:
+    """The kernel's launch at (T, B) on a card with `sms` SMs
+    (kernels.rl_scans.chunked_launch_shape): `cols` columns x `chunks`
+    chunks of 8 steps per CTA, walked from the last super-tile (reverse) or
+    the first (forward).  The dynamic shared memory holds two buffers of
+    the chunks' (A, D) pairs.  `cols` and `chunks` override the choice."""
+    return chunked_launch_shape("linear_scan", T, B, sms, cols, chunks, 4)
 
 
 def linear_scan_plain(a, b, boundary: Optional[torch.Tensor] = None,
@@ -49,6 +61,12 @@ def linear_scan(a, b, boundary: Optional[torch.Tensor] = None,
     """y (T, B) of the recurrence for a (T, B), b broadcastable to a, and a
     boundary that is None (zero) or broadcastable to (B,).  CPU tensors run
     the plain version; CUDA tensors launch the kernel or raise."""
+    return _linear_scan(a, b, boundary, reverse)
+
+
+def _linear_scan(a, b, boundary, reverse, cols=None, chunks=None):
+    """linear_scan; `cols` and `chunks` override linear_scan_launch_shape's
+    choice, to measure the candidates."""
     if a.ndim != 2:
         raise ValueError(f"linear_scan: a must be (T, B); got "
                          f"{tuple(a.shape)}")
@@ -68,6 +86,7 @@ def linear_scan(a, b, boundary: Optional[torch.Tensor] = None,
     _build.check_kernel_inputs(name, tensors)
     if T < 1 or B < 1:
         raise ValueError(f"{name}: T and B must be >= 1; got T={T}, B={B}")
+    shape = linear_scan_launch_shape(T, B, _sms(a.device), cols, chunks)
     y = torch.empty((T, B), dtype=torch.float32, device=a.device)
     bound = tensors.get("boundary")
     with torch.cuda.device(a.device):
@@ -75,7 +94,7 @@ def linear_scan(a, b, boundary: Optional[torch.Tensor] = None,
         status = _build.library().cdll.linear_scan_f32(
             tensors["a"].data_ptr(), tensors["b"].data_ptr(),
             None if bound is None else bound.data_ptr(), y.data_ptr(), T, B,
-            int(reverse), stream)
+            int(reverse), shape["cols"], shape["chunks"], stream)
     _build.check_status(name, status)
     linear_scan.launches += 1
     return y

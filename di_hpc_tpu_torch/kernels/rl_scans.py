@@ -22,8 +22,9 @@ d vl/d value[:-1] = 2*ct*(value - vs)/TB, and zeros to the importance
 weights, the rewards and value[T].  `vtrace_returns_adv` has the zero
 gradient of rl_scans.py:507-511.
 
-And of its row-constant-coefficient part (one thread per column walking
-time backwards, csrc/rl_scans.cu):
+And of its row-constant-coefficient part (csrc/rl_scans.cu: the loss
+kernel chunked over T like V-trace, its launch `td_lambda_launch_shape(T,
+B)`; the others one thread per column walking time backwards):
 
   - `gae` ~ `gae_fused_pallas`: value (T+1, B), reward (T, B) -> advantage
     (T, B), dividing by `ops.scan.gae_denominators` as the JAX wrapper does.
@@ -56,7 +57,8 @@ import torch
 from . import _build
 
 __all__ = ["vtrace_losses", "vtrace_losses_plain", "vtrace_returns_adv",
-           "vtrace_returns_adv_plain", "vtrace_launch_shape", "gae",
+           "vtrace_returns_adv_plain", "vtrace_launch_shape",
+           "td_lambda_launch_shape", "chunked_launch_shape", "gae",
            "gae_plain", "lambda_returns", "lambda_returns_plain",
            "td_lambda_loss", "td_lambda_loss_plain", "td_lambda_err",
            "td_lambda_err_plain", "upgo_advantages", "upgo_advantages_plain",
@@ -122,38 +124,59 @@ def _scalars(gamma, lambda_, rho_clip, c_clip, pg_clip):
             float(c_clip), float(pg_clip))
 
 
-# Steps of one thread in a super-tile (kChunk in csrc/vtrace.cu), the most
-# chunks in a super-tile and the most threads in a CTA (kMaxThreads).
-VTRACE_CHUNK = 8
-VTRACE_MAX_CHUNKS = 16
-VTRACE_MAX_THREADS = 512
+# Steps of one thread in a super-tile (kChunk in csrc/vtrace.cu and
+# csrc/chunked_scan.cuh), the most chunks in a super-tile and the most
+# threads in a CTA (kMaxThreads).
+SCAN_CHUNK = 8
+SCAN_MAX_CHUNKS = 16
+SCAN_MAX_THREADS = 512
 
 
-def vtrace_launch_shape(T: int, B: int, sms: int = 132, cols=None,
-                        chunks=None) -> dict:
-    """The V-trace kernels' launch at (T, B) on a card with `sms` SMs: a CTA
-    owns `cols` neighbouring columns (32, or 16 or 8 where wider tiles would
-    give fewer than sms / 2 CTAs) and `chunks` chunks of VTRACE_CHUNK steps
-    each (up to 16), one thread per column and chunk; together the chunks
-    make a super-tile, and the CTA walks ceil(T / super_tile_steps) of them
-    from the last.  The grid is ceil(B / cols) CTAs.  `cols` and `chunks`
-    override the choice.  The dynamic shared memory holds two buffers of
-    the chunks' (A, D) pairs and the losses' chunk partials."""
+def chunked_launch_shape(name: str, T: int, B: int, sms: int, cols,
+                         chunks, smem_floats: int) -> dict:
+    """The launch of a kernel chunked over T (csrc/vtrace.cu,
+    csrc/chunked_scan.cuh) at (T, B) on a card with `sms` SMs: a CTA owns
+    `cols` neighbouring columns (32, or 16 or 8 where wider tiles would give
+    fewer than sms / 2 CTAs) and `chunks` chunks of SCAN_CHUNK steps each
+    (up to 16), one thread per column and chunk; together the chunks make a
+    super-tile, and the CTA walks ceil(T / super_tile_steps) of them.  The
+    grid is ceil(B / cols) CTAs.  `cols` and `chunks` override the choice.
+    The dynamic shared memory holds `smem_floats` floats per thread."""
     if T < 1 or B < 1:
-        raise ValueError(f"vtrace: T and B must be >= 1; got T={T}, B={B}")
+        raise ValueError(f"{name}: T and B must be >= 1; got T={T}, B={B}")
     if cols is None:
         cols = 32
         while cols > 8 and -(-B // cols) < sms // 2:
             cols //= 2
-    chunks = chunks or min(-(-T // VTRACE_CHUNK), VTRACE_MAX_CHUNKS)
-    if cols * chunks > VTRACE_MAX_THREADS:
-        raise ValueError(f"vtrace: {cols} columns x {chunks} chunks exceed "
-                         f"{VTRACE_MAX_THREADS} threads")
-    steps, threads = chunks * VTRACE_CHUNK, cols * chunks
-    return {"cols": cols, "chunk": VTRACE_CHUNK, "chunks": chunks,
+    chunks = chunks or min(-(-T // SCAN_CHUNK), SCAN_MAX_CHUNKS)
+    if cols * chunks > SCAN_MAX_THREADS:
+        raise ValueError(f"{name}: {cols} columns x {chunks} chunks exceed "
+                         f"{SCAN_MAX_THREADS} threads")
+    steps, threads = chunks * SCAN_CHUNK, cols * chunks
+    return {"cols": cols, "chunk": SCAN_CHUNK, "chunks": chunks,
             "threads": threads, "super_tile_steps": steps,
             "super_tiles": -(-T // steps), "grid": -(-B // cols),
-            "smem_bytes": 6 * threads * 4}
+            "smem_bytes": smem_floats * threads * 4}
+
+
+def vtrace_launch_shape(T: int, B: int, sms: int = 132, cols=None,
+                        chunks=None) -> dict:
+    """The V-trace kernels' launch (chunked_launch_shape); the CTA walks
+    its super-tiles from the last.  The dynamic shared memory holds two
+    buffers of the chunks' (A, D) pairs and the losses' chunk partials."""
+    return chunked_launch_shape("vtrace", T, B, sms, cols, chunks, 6)
+
+
+def td_lambda_launch_shape(T: int, B: int, sms: int = 132, cols=None,
+                           chunks=None) -> dict:
+    """The TD(lambda) loss kernel's launch (chunked_launch_shape); the CTA
+    walks its super-tiles from the last.  The dynamic shared memory holds
+    two buffers of the chunks' (A, D) pairs and the chunk partials."""
+    return chunked_launch_shape("td_lambda_loss", T, B, sms, cols, chunks, 5)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch_vtrace(name, entry, tensors, T, B, clips, cols, chunks):
@@ -161,8 +184,7 @@ def _launch_vtrace(name, entry, tensors, T, B, clips, cols, chunks):
     device: `tensors` are the entry point's inputs and outputs in its
     argument order."""
     device = tensors[0].device
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    shape = vtrace_launch_shape(T, B, sms, cols, chunks)
+    shape = vtrace_launch_shape(T, B, _sms(device), cols, chunks)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         status = entry(*(t.data_ptr() for t in tensors), T, B,
@@ -431,11 +453,25 @@ td_lambda_err.launches = 0
 def _td_lambda_loss_forward(value, reward, gamma, lambda_):
     if _build.on_cpu(value, reward):
         return td_lambda_loss_plain(value, reward, gamma, lambda_)
-    value, reward = _check_pair("td_lambda_loss", value, reward)
-    parts = torch.empty((1, reward.shape[1]), dtype=torch.float32,
-                        device=reward.device)
-    _launch("td_lambda_loss", "td_lambda_loss_f32", value, reward, parts,
-            gamma, lambda_)
+    return _td_lambda_loss_cuda(value, reward, gamma, lambda_)
+
+
+def _td_lambda_loss_cuda(value, reward, gamma, lambda_, cols=None,
+                         chunks=None):
+    """The loss kernel's launch; `cols` and `chunks` override
+    td_lambda_launch_shape's choice, to measure the candidates."""
+    name = "td_lambda_loss"
+    value, reward = _check_pair(name, value, reward)
+    T, B = reward.shape
+    shape = td_lambda_launch_shape(T, B, _sms(reward.device), cols, chunks)
+    parts = torch.empty((1, B), dtype=torch.float32, device=reward.device)
+    with torch.cuda.device(reward.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = _build.library().cdll.td_lambda_loss_f32(
+            value.data_ptr(), reward.data_ptr(), parts.data_ptr(), T, B,
+            float(gamma), float(gamma * lambda_), shape["cols"],
+            shape["chunks"], stream)
+    _build.check_status(name, status)
     td_lambda_loss.launches += 1
     # One partial per column, summed by torch.sum in a fixed order: no float
     # atomics, so repeated runs are bitwise equal.

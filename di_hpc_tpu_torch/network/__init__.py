@@ -7,7 +7,9 @@ from .lstm import (
     LSTMWeights,
     flatten_lstm_params,
     init_lstm_params,
+    layer_route,
     lstm_fused,
+    reset_route_counts,
     unflatten_lstm_params,
 )
 from .scatter_connection import ScatterConnection, scatter_connection

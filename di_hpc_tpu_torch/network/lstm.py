@@ -12,11 +12,26 @@ the parameter tuple are shared with the oracle (origin.rnn).
 As in the JAX package, a layer takes the recurrent path instead -- the
 two-pass LayerNorm and the bias over the whole gx, then a per-step loop of
 h @ Wh, LayerNorm, the gates and the state update in the stream dtype --
-exactly when `remat=True` (each step then runs under
-torch.utils.checkpoint, so the backward recomputes the cell activations
-instead of keeping them) or when Wh's dtype differs from the projection's.
-That is the reference's own routing by argument and dtype; with
-remat=False and matching dtypes a CUDA call takes the kernel or raises.
+wherever the kernel cannot take it, so that the op gives an answer for any
+H and any float dtype:
+  - `remat=True` (each step then runs under torch.utils.checkpoint, so the
+    backward recomputes the cell activations instead of keeping them);
+  - Wh's dtype differs from the projection's;
+  - streams other than float32 and bf16 (float16, say), on either device,
+    as the JAX op routes them;
+  - and, for CUDA tensors, wherever the kernel library cannot launch the
+    layer (`layer_route`): the forward's shared memory beyond the card's
+    per-CTA limit, and, when a gradient is needed, H % 4 != 0 or the
+    backward that B selects (V2 from kernels.V2_MIN_BATCH rows up, else
+    V1) beyond that limit.
+The rule reads the library's own sizing exports, by shape and dtype; the
+TPU kernel's gates (H % 128, VMEM, S >= 8) are the TPU's and are not
+carried over.  Any other CPU call takes the kernel wrapper, which runs its
+plain version there: the same function as the recurrent path, up to
+rounding.  The kernel wrappers themselves never fall back: called
+directly, they raise on what they cannot take.  `lstm_fused.routes`
+counts the layers that took each path ({"kernel": n, "recurrent": n};
+`reset_route_counts` zeroes it).
 """
 
 from __future__ import annotations
@@ -27,14 +42,17 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.lstm_cell import lstm_layer_fused
+from ..kernels import _build
+from ..kernels.lstm_cell import (STREAM_DTYPES, V2_MIN_BATCH,
+                                 lstm_layer_fused, v1_launch_shape)
 from ..ops._validate import _fail
 from ..origin.rnn import (LSTMParams, dropout_mask, init_lstm_params,
                           layer_norm)
 
 __all__ = [
     "lstm_fused", "LSTM", "LSTMWeights", "LSTMParams", "init_lstm_params",
-    "flatten_lstm_params", "unflatten_lstm_params",
+    "flatten_lstm_params", "unflatten_lstm_params", "layer_route",
+    "reset_route_counts",
 ]
 
 _LN_FIELDS = ("ln_gamma_x", "ln_beta_x", "ln_gamma_h", "ln_beta_h")
@@ -120,6 +138,45 @@ def _recurrent_layer(gxp, wh, g_x, b_x, g_h, b_h, bias, h, c, remat):
     return torch.stack(ys), h, c
 
 
+def layer_route(B: int, H: int, dtype: torch.dtype, grad: bool,
+                smem_limit: int) -> str:
+    """"kernel" where the kernel library can launch a layer of batch B,
+    hidden size H and stream dtype `dtype` on a card whose CTAs may take
+    `smem_limit` bytes of shared memory -- the forward, and with `grad` the
+    backward that B selects -- else "recurrent".  Reads the library's sizing
+    exports: the forward's least plan (lstm_layer_smem_bytes), V2's
+    (lstm_layer_bwd_v2_smem_bytes) and V1's (v1_launch_shape)."""
+    if dtype not in STREAM_DTYPES:
+        return "recurrent"
+    item = torch.finfo(dtype).bits // 8
+    lib = _build.library().cdll
+    if lib.lstm_layer_smem_bytes(H, item) > smem_limit:
+        return "recurrent"
+    if grad:
+        if H % 4:
+            return "recurrent"
+        need = (lib.lstm_layer_bwd_v2_smem_bytes(H, item)
+                if B >= V2_MIN_BATCH
+                else v1_launch_shape(B, H, item)["smem_bytes"])
+        if need > smem_limit:
+            return "recurrent"
+    return "kernel"
+
+
+def _route(remat, gxp, wh, layer_args) -> str:
+    """The path of one layer (module docstring)."""
+    if remat or wh.dtype != gxp.dtype or gxp.dtype not in STREAM_DTYPES:
+        return "recurrent"
+    if _build.on_cpu(gxp, wh):
+        return "kernel"
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in layer_args)
+    props = torch.cuda.get_device_properties(gxp.device)
+    return layer_route(gxp.shape[1], wh.shape[0], gxp.dtype, grad,
+                       getattr(props, "shared_memory_per_block_optin",
+                               232448))
+
+
 def lstm_fused(
     params: LSTMParams,
     inputs: torch.Tensor,                                    # (S, B, in)
@@ -132,8 +189,11 @@ def lstm_fused(
     """Returns (output (S, B, H), (h (L, B, H), c (L, B, H))).
 
     Inter-layer dropout draws from `generator`, which must live on the
-    inputs' device.  `remat=True`, or Wh in another dtype than the input
-    projection, takes the recurrent path (module docstring)."""
+    inputs' device.  Each layer takes the kernel or the recurrent path by
+    the module docstring's rule: `remat=True`, Wh in another dtype than the
+    input projection, a stream dtype other than float32 and bf16, or (CUDA)
+    a shape that the kernel library cannot launch takes the recurrent
+    path."""
     if inputs.ndim != 3:
         _fail("lstm_fused",
               f"inputs must be (S, B, input_size); got {tuple(inputs.shape)}")
@@ -164,7 +224,10 @@ def lstm_fused(
             g_h, b_h = params.ln_gamma_h[l], params.ln_beta_h[l]
         else:
             g_x = b_x = g_h = b_h = None
-        if remat or wh.dtype != gxp.dtype:
+        route = _route(remat, gxp, wh, (gxp, wh, g_x, b_x, g_h, b_h,
+                                        params.bias[l], H0[l], C0[l]))
+        lstm_fused.routes[route] += 1
+        if route == "recurrent":
             x, h_l, c_l = _recurrent_layer(gxp, wh, g_x, b_x, g_h, b_h,
                                            params.bias[l], H0[l], C0[l],
                                            remat)
@@ -181,6 +244,13 @@ def lstm_fused(
         if dropout > 0.0 and l != L - 1:
             x = dropout_mask(x, dropout, generator)
     return x, (torch.stack(hs), torch.stack(cs))
+
+
+lstm_fused.routes = {"kernel": 0, "recurrent": 0}
+
+
+def reset_route_counts() -> None:
+    lstm_fused.routes = {"kernel": 0, "recurrent": 0}
 
 
 class LSTMWeights(nn.Module):

@@ -7,7 +7,12 @@ plain versions, the scan entry points, ops.upgo_loss and the scatter
 connection on the card against the CPU, and one step of chip_smoke.py's
 AlphaStar trainer on the card against the CPU; the bf16 instantiations of the
 three LSTM kernels against their plain bf16 versions, the bf16 train step on
-the card against the CPU, and strided (T, B) inputs through the RL ops.
+the card against the CPU, and strided (T, B) inputs through the RL ops;
+the chunked linear recurrence (kernel 6) and TD(lambda) loss (kernel 9)
+against their plain versions at ragged shapes, boundaries and tilings; and
+`network.lstm_fused` with a gradient where the kernels cannot take the
+layer (H % 4 != 0, widths past each shared-memory plan, float16), against
+the same call on the CPU, with the route each layer took.
 
 Every test here is marked `gpu` and skips without a card (decided in the
 `cuda` fixture, never at import).  This file imports no JAX, so it also
@@ -29,6 +34,7 @@ import torch
 import chip_smoke
 from di_hpc_tpu_torch import kernels, models, network, ops
 from di_hpc_tpu_torch.kernels import _build
+from di_hpc_tpu_torch.kernels.linear_scan import _linear_scan
 
 RTOL, ATOL = 1e-4, 1e-4
 CLIPS = (0.99, 0.95, 1.0, 0.9, 1.2)   # gamma, lambda, rho, c, pg
@@ -1157,3 +1163,201 @@ def test_bf16_train_step_on_card_matches_cpu(cuda, B):
         big = w.grad.abs() > 1e-2 * scale
         torch.testing.assert_close(g.detach().cpu()[big], w.detach()[big],
                                    rtol=0, atol=1e-6, msg=f"param {name}")
+
+
+# ---------------------------------------- chunked scans: kernels 6, 9 ----
+
+# T = 1, 7, 9, 65, 1000 leave partial chunks or super-tiles (T = 8 one whole
+# chunk, T = 1024 whole 128-step super-tiles); B = 1, 5, 33 and 4100 leave
+# partial column tiles.
+CHUNKED_T = (1, 7, 8, 9, 65, 1000, 1024)
+CHUNKED_B = (1, 5, 33, 4100)
+
+
+@pytest.mark.parametrize("B", CHUNKED_B)
+@pytest.mark.parametrize("T", CHUNKED_T)
+def test_linear_scan_chunked_kernel_matches_plain(cuda, T, B):
+    """Both directions with a zero, a scalar and a large (B,) boundary: in
+    the reverse walk the steps past T come first and must be the identity
+    (a = 0, b = 1), or the boundary would be lost at a T that is not a
+    multiple of the super-tile."""
+    a, b = _full_plane_inputs(62, T, B, cuda)[:2]
+    boundaries = {"zero": None, "scalar": torch.tensor(3.0, device=cuda),
+                  "vector": 100 * torch.linspace(-1, 1, B, device=cuda)}
+    for reverse in (True, False):
+        for kind, y in boundaries.items():
+            before = kernels.linear_scan.launches
+            got = kernels.linear_scan(a, b, y, reverse)
+            torch.cuda.synchronize()
+            assert kernels.linear_scan.launches == before + 1
+            want = kernels.linear_scan_plain(
+                a, b, None if y is None else y.expand(B), reverse)
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                       msg=f"reverse={reverse} {kind}")
+
+
+# The tilings chip_smoke.py times against the chosen one, and the extremes:
+# one chunk or one column per CTA, a partial warp.
+CHUNKED_TILINGS = ((32, 16), (16, 16), (32, 8), (1, 1), (1, 16), (8, 1),
+                   (8, 3), (5, 7))
+
+
+def test_linear_scan_chunked_kernel_takes_every_tiling(cuda):
+    T, B = 1000, 70
+    a, b = _full_plane_inputs(63, T, B, cuda)[:2]
+    y = 10 * torch.linspace(-1, 1, B, device=cuda)
+    for reverse in (True, False):
+        want = kernels.linear_scan_plain(a, b, y, reverse)
+        for cols, chunks in CHUNKED_TILINGS:
+            got = _linear_scan(a, b, y, reverse, cols=cols, chunks=chunks)
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                       msg=f"{reverse} {cols}x{chunks}")
+
+
+# gamma*lambda = 0 (each step its own one-step return), lambda = 1 (the
+# Monte Carlo return, nothing decays), gamma = 1.
+TD_CASES = ((0.9, 0.8), (0.9, 0.0), (0.95, 1.0), (1.0, 0.8), (1.0, 1.0))
+
+
+@pytest.mark.parametrize("B", CHUNKED_B)
+@pytest.mark.parametrize("T", CHUNKED_T)
+def test_td_lambda_loss_chunked_kernel_matches_plain(cuda, T, B):
+    """The loss against the plain version, and bitwise equal on a second
+    run (one partial per column, summed in a fixed order)."""
+    value, reward = _scan_inputs(64, T, B, cuda)
+    for gamma, lambda_ in TD_CASES:
+        before = kernels.td_lambda_loss.launches
+        got = kernels.td_lambda_loss(value, reward, gamma, lambda_)
+        again = kernels.td_lambda_loss(value, reward, gamma, lambda_)
+        torch.cuda.synchronize()
+        assert kernels.td_lambda_loss.launches == before + 2
+        assert torch.equal(got, again)
+        want = kernels.td_lambda_loss_plain(value, reward, gamma, lambda_)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                   msg=f"gamma={gamma} lambda={lambda_}")
+
+
+def test_td_lambda_loss_chunked_kernel_takes_every_tiling(cuda):
+    T, B = 1000, 70
+    value, reward = _scan_inputs(65, T, B, cuda)
+    want = kernels.td_lambda_loss_plain(value, reward, 0.9, 0.8)
+    for cols, chunks in CHUNKED_TILINGS:
+        got = kernels.rl_scans._td_lambda_loss_cuda(
+            value, reward, 0.9, 0.8, cols=cols, chunks=chunks)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                   msg=f"{cols}x{chunks}")
+
+
+# ------------------------------------------------ lstm_fused routing ----
+
+def _smem_limit(dev) -> int:
+    props = torch.cuda.get_device_properties(dev)
+    return getattr(props, "shared_memory_per_block_optin", 232448)
+
+
+def _first_width_past(need, limit) -> int:
+    """The least H % 4 == 0 whose shared-memory plan `need(H)` exceeds
+    `limit`."""
+    return next(H for H in range(4, 1 << 15, 4) if need(H) > limit)
+
+
+def _route_case(case, dev):
+    """(H, B, dtype, layers, carried state) of a routing case; widths past a
+    plan come from the library's sizing exports on this card."""
+    lib = _build.library().cdll
+    limit = _smem_limit(dev)
+    f32 = torch.float32
+    if case == "past_forward":
+        H = _first_width_past(lambda H: lib.lstm_layer_smem_bytes(H, 4),
+                              limit)
+        return H, 4, f32, 1, False
+    if case == "past_v2":
+        H = _first_width_past(
+            lambda H: lib.lstm_layer_bwd_v2_smem_bytes(H, 4), limit)
+        assert lib.lstm_layer_smem_bytes(H, 4) <= limit   # the forward fits
+        return H, 64, f32, 1, False
+    if case == "past_v1":
+        H = _first_width_past(
+            lambda H: kernels.v1_launch_shape(4, H, 4)["smem_bytes"], limit)
+        assert lib.lstm_layer_smem_bytes(H, 4) <= limit
+        return H, 4, f32, 1, False
+    return {"H30_B4": (30, 4, f32, 2, False), "H30_B64": (30, 64, f32, 2,
+                                                          False),
+            "float16": (32, 8, torch.float16, 2, False),
+            "float16_carried": (32, 8, torch.float16, 2, True),
+            "flagship_f32_B8": (512, 8, f32, 2, True),
+            "flagship_f32_B64": (512, 64, f32, 2, True),
+            "flagship_bf16_B64": (512, 64, torch.bfloat16, 2, True)}[case]
+
+
+def _lstm_fused_with_grad(H, B, dtype, layers, carried, dev, S=3, I=16):
+    """network.lstm_fused on `dev` and the gradients of a fixed loss in the
+    inputs, every parameter and (when carried) the state; the same numbers
+    on either device."""
+    gen = torch.Generator().manual_seed(H * 1000 + B)
+    p = network.init_lstm_params(gen, I, H, layers, "LN", device="cpu")
+    p = network.LSTMParams(*(
+        tuple(w.to(dev, dtype).requires_grad_() for w in f)
+        if isinstance(f, tuple) else f.to(dev, dtype).requires_grad_()
+        for f in p))
+    x = torch.randn(S, B, I, generator=gen).to(dev, dtype).requires_grad_()
+    state = None
+    if carried:
+        state = tuple((0.5 * torch.randn(layers, B, H, generator=gen))
+                      .to(dev, dtype).requires_grad_() for _ in range(2))
+    y, (h, c) = network.lstm_fused(p, x, state)
+    _layer_loss(y.float(), h.float(), c.float()).backward()
+    leaves = [x, *p.wx, *p.wh, p.bias, p.ln_gamma_x, p.ln_beta_x,
+              p.ln_gamma_h, p.ln_beta_h, *(state or ())]
+    return [y, h, c, *(t.grad for t in leaves)]
+
+
+@pytest.mark.parametrize("case", [
+    "H30_B4", "H30_B64", "past_forward", "past_v2", "past_v1", "float16",
+    "float16_carried", "flagship_f32_B8", "flagship_f32_B64",
+    "flagship_bf16_B64"])
+def test_lstm_fused_routes_what_the_kernels_cannot_take(cuda, case):
+    """lstm_fused with a gradient gives the CPU's answer on the card where
+    the kernels cannot take a layer -- H % 4 != 0 under V1 (B=4) and V2
+    (B=64), the first widths past the forward's and each backward's
+    shared-memory plan, float16 streams -- and takes the recurrent path
+    there (the route counter); the flagship H=512 takes the kernels.
+    float16 runs the recurrent path on both devices, as the JAX op routes
+    it: with a zero state the first step's h-side LayerNorm has zero
+    variance, and its backward, -0.5 * (var + eps)^-1.5, overflows float16
+    on both devices and in JAX alike, so the NaNs must sit in the same
+    places.  Tolerances: float32 rtol 1e-4, atol 1e-4 + 1e-5 * max|want|
+    (the recurrent path against the kernels' plain versions on the CPU:
+    other summation orders); float16 and bf16 1e-2 and 5e-2 of max|want|
+    (each op rounds to the stream type in another order on the two
+    devices)."""
+    H, B, dtype, layers, carried = _route_case(case, cuda)
+    network.reset_route_counts()
+    kernels.reset_launch_counts()
+    got = _lstm_fused_with_grad(H, B, dtype, layers, carried, cuda)
+    torch.cuda.synchronize()
+    routes = dict(network.lstm_fused.routes)
+    counts = kernels.launch_counts()
+    want = _lstm_fused_with_grad(H, B, dtype, layers, carried,
+                                 torch.device("cpu"))
+    if case.startswith("flagship"):
+        assert routes == {"kernel": layers, "recurrent": 0}, routes
+        tag = "_bf16" if dtype == torch.bfloat16 else ""
+        assert counts["lstm_layer_fused" + tag] == layers
+    else:
+        assert routes == {"kernel": 0, "recurrent": layers}, routes
+        assert sum(counts.values()) == 0, counts
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype == dtype, i
+        g, w = g.detach().float().cpu(), w.detach().float()
+        finite = w[torch.isfinite(w)]
+        scale = float(finite.abs().max()) if finite.numel() else 0.0
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=RTOL,
+                                       atol=ATOL + 1e-5 * scale,
+                                       msg=f"{case} output {i}")
+        else:
+            rel = 1e-2 if dtype == torch.float16 else 5e-2
+            torch.testing.assert_close(g, w, rtol=0, atol=rel * scale,
+                                       equal_nan=True,
+                                       msg=f"{case} output {i}")

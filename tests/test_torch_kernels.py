@@ -156,6 +156,33 @@ def test_vtrace_launch_shape_covers_the_planes(T, B):
     assert shape["chunks"] == min(-(-T // 8), 16)
 
 
+@pytest.mark.parametrize("B", [1, 5, 33, 4096, 4100])
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 65, 1000, 1024])
+@pytest.mark.parametrize("shape_fn", ["linear_scan_launch_shape",
+                                      "td_lambda_launch_shape"])
+def test_chunked_scan_launch_shapes_cover_the_planes(shape_fn, T, B):
+    """Kernels 6 and 9 take the V-trace kernels' tiling: the tiles cover T
+    and B, a CTA holds at most 512 threads, its shared memory (two buffers
+    of (A, D) pairs, and the loss's chunk partials) fits the H100's 227 KB,
+    and the cols and chunks overrides are taken as given."""
+    fn = getattr(kernels, shape_fn)
+    shape = fn(T, B)
+    assert shape == {**kernels.vtrace_launch_shape(T, B),
+                     "smem_bytes": shape["smem_bytes"]}
+    assert (shape["grid"] - 1) * shape["cols"] < B <= \
+        shape["grid"] * shape["cols"]
+    steps, tiles = shape["super_tile_steps"], shape["super_tiles"]
+    assert steps == shape["chunks"] * 8 and (tiles - 1) * steps < T <= \
+        tiles * steps
+    assert shape["threads"] == shape["cols"] * shape["chunks"] <= 512
+    floats = 4 if shape_fn.startswith("linear") else 5
+    assert shape["smem_bytes"] == floats * 4 * shape["threads"] <= 232448
+    assert fn(T, B, 132, 16, 16)["grid"] == -(-B // 16)
+    assert fn(T, B, 132, 5, 7)["super_tile_steps"] == 56
+    with pytest.raises(ValueError, match="exceed 512 threads"):
+        fn(T, B, 132, 64, 16)
+
+
 def test_non_cpu_inputs_go_to_the_kernel_checks_not_the_plain_version():
     """A tensor off the CPU never falls back: the CUDA path's checks refuse
     what is not a float32 CUDA tensor (meta tensors stand in here)."""
@@ -208,6 +235,63 @@ def test_layer_launch_shape_reads_the_route_from_the_library(monkeypatch, H,
     fake = type("Lib", (), {"cdll": _FakeLayerLibrary()})()
     monkeypatch.setattr(_build, "library", lambda: fake)
     assert kernels.layer_launch_shape(256, H, 4, rows) == want
+
+
+class _FakeSizingLibrary:
+    """The sizing exports that network.layer_route reads, with plans that
+    end at made-up widths on a card of SMEM_LIMIT bytes per CTA: the
+    forward past H=1160, V2 past 580, V1 past 724 (float32; twice the
+    widths for bf16), each a multiple of 4."""
+
+    SMEM_LIMIT = 232000
+
+    def lstm_layer_smem_bytes(self, H, item):
+        return 50 * H * item
+
+    def lstm_layer_bwd_v2_smem_bytes(self, H, item):
+        return 100 * H * item
+
+    def lstm_layer_bwd_v1_cluster_size(self, H):
+        return 16 if H % 64 == 0 else 4
+
+    def lstm_layer_bwd_v1_rows_per_group(self, B, H, item, cluster):
+        return 8
+
+    def lstm_layer_bwd_v1_smem_bytes(self, H, item, cluster, rows):
+        return 80 * H * item + 1
+
+
+@pytest.mark.parametrize("B,H,dtype,grad,want", [
+    (4, 30, torch.float32, True, "recurrent"),       # H % 4 != 0, V1
+    (64, 30, torch.float32, True, "recurrent"),      # H % 4 != 0, V2
+    (4, 30, torch.float32, False, "kernel"),         # the 8-row forward
+    (8, 32, torch.float16, False, "recurrent"),      # no float16 kernel
+    (8, 32, torch.float64, True, "recurrent"),
+    (4, 1164, torch.float32, False, "recurrent"),    # past the forward
+    (4, 1160, torch.float32, False, "kernel"),
+    (64, 584, torch.float32, True, "recurrent"),     # past V2
+    (64, 584, torch.float32, False, "kernel"),
+    (4, 584, torch.float32, True, "kernel"),         # V1 takes it
+    (4, 728, torch.float32, True, "recurrent"),      # past V1
+    (64, 724, torch.bfloat16, True, "kernel"),       # bf16 plans go further
+    (64, 512, torch.float32, True, "kernel"),        # the flagship
+    (32, 512, torch.float32, True, "kernel"),
+    (256, 512, torch.bfloat16, True, "kernel"),
+    (1, 512, torch.bfloat16, False, "kernel")])
+def test_layer_route_reads_the_plans_from_the_library(monkeypatch, B, H,
+                                                      dtype, grad, want):
+    """network.layer_route sends a layer to the recurrent path where the
+    kernel library cannot launch it, read from the library's sizing
+    exports (a fake library here) against the card's shared-memory limit:
+    H % 4 != 0 with a gradient, a dtype other than float32 and bf16, and a
+    width past the forward's plan or past the plan of the backward that B
+    selects (V2 from B = 64)."""
+    from di_hpc_tpu_torch import network
+    from di_hpc_tpu_torch.kernels import _build
+    fake = type("Lib", (), {"cdll": _FakeSizingLibrary()})()
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    assert network.layer_route(B, H, dtype, grad,
+                               _FakeSizingLibrary.SMEM_LIMIT) == want
 
 
 def test_launch_counts_reset():

@@ -99,6 +99,59 @@ def test_lstm_fused_without_norm_matches_jax_scan(f32_matmuls):
     _check(got, want)
 
 
+def test_lstm_fused_float16_takes_the_recurrent_path_as_jax_does():
+    """No kernel takes float16 streams, so each layer takes the recurrent
+    path, on the CPU as on the card, as JAX's op routes float16 to its scan
+    (its network/lstm.py:134-135).  Against JAX's float16 op within 1e-2 of
+    max|want|: both round every op to float16, in other orders."""
+    S, B, I, H, L = 6, 5, 12, 32, 2
+    p = _np_lstm_params(3, I, H, L)
+    st = _state(4, L, B, H)
+    x = np.random.default_rng(5).standard_normal((S, B, I)).astype(
+        np.float32)
+    half = lambda a: None if a is None else jnp.asarray(a, jnp.float16)
+    want = jax_network_lstm.lstm_fused(
+        jax.tree_util.tree_map(half, p), half(x), tuple(map(half, st)), "LN")
+    tp = network.LSTMParams(*(
+        tuple(w.half() for w in f) if isinstance(f, tuple) else f.half()
+        for f in _port_params(p)))
+    network.reset_route_counts()
+    y, (h, c) = network.lstm_fused(tp, torch.from_numpy(x).half(), tuple(
+        torch.from_numpy(a).half() for a in st))
+    assert network.lstm_fused.routes == {"kernel": 0, "recurrent": L}
+    for name, g, w in (("y", y, want[0]), ("h", h, want[1][0]),
+                       ("c", c, want[1][1])):
+        assert g.dtype == torch.float16, name
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(g.detach().float().numpy(), w, rtol=0,
+                                   atol=1e-2 * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("float32", {"kernel": 2, "recurrent": 0}),
+    ("bf16", {"kernel": 2, "recurrent": 0}),
+    ("remat", {"kernel": 0, "recurrent": 2}),
+    ("mixed", {"kernel": 0, "recurrent": 2})])
+def test_lstm_fused_counts_the_route_of_each_layer(case, want):
+    """On the CPU only remat, mixed dtypes and streams other than float32
+    and bf16 leave the kernel wrapper (which runs its plain version here);
+    the card's shape rules are held in tests/test_torch_kernels.py and
+    tests/test_torch_gpu.py.  reset_route_counts zeroes the counter."""
+    S, B, I, H, L = 3, 4, 12, 30, 2
+    p = _port_params(_np_lstm_params(6, I, H, L))
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (S, B, I)).astype(np.float32))
+    dt = torch.bfloat16 if case in ("bf16", "mixed") else torch.float32
+    p = network.LSTMParams(*(
+        tuple(w.to(dt) for w in f) if isinstance(f, tuple) else f.to(dt)
+        for f in p))
+    network.lstm_fused.routes["kernel"] += 5
+    network.reset_route_counts()
+    network.lstm_fused(p, x if case == "mixed" else x.to(dt),
+                       remat=case == "remat")
+    assert network.lstm_fused.routes == want
+
+
 @pytest.mark.parametrize("norm_type", ["LN", None])
 def test_origin_lstm_matches_jax_oracle(f32_matmuls, norm_type):
     S, B, I, H, L = 7, 4, 10, 24, 2
