@@ -49,16 +49,20 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 td_lambda_loss, td_lambda_err, linear_scan both ways with a
                 zero, a scalar and a (B,) boundary, upgo_advantages,
                 upgo_loss) run at T=1024, B=4096, at a ragged B and at T=1;
-                td_lambda_loss and upgo_loss must be bitwise repeatable.
-                The two chunked scan kernels (linear_scan, td_lambda_loss)
-                print their launch (columns and chunks per CTA, super-tiles,
-                ptxas' registers and spills), time the chosen tiling
-                against 16x16 and 32x8 in turns at T=1024, and are held
-                against their plain versions at every shape of the card
-                tests (T = 1, 7, 8, 9, 65, 1000, 1024 x B = 1, 5, 33, 4100;
-                both directions with a zero, a scalar and a large (B,)
-                boundary; the loss at gamma*lambda = 0, lambda = 1 and
-                gamma = 1, bitwise repeatable).
+                the four row-constant ones and upgo_loss must be bitwise
+                repeatable.  The four chunked scan kernels (linear_scan,
+                td_lambda_loss, td_lambda_err, gae) print their launch
+                (columns and chunks per CTA, super-tiles, ptxas' registers
+                and spills), time the chosen tiling against 16x16 and 32x8
+                in turns at T=1024, and are held against their plain
+                versions at every shape of the card tests (T = 1, 7, 8, 9,
+                65, 1000, 1024 x B = 1, 5, 33, 4100; both directions with a
+                zero, a scalar and a large (B,) boundary; the loss and the
+                error plane at gamma*lambda = 0, lambda = 1 and gamma = 1,
+                GAE at gamma*lambda = 0, lambda = 1 and gamma = lambda = 1,
+                bitwise repeatable), GAE also at the PPO trainer's T=16,
+                B=256, and GAE and the error plane at every tiling of the
+                card tests.
                 The bf16 instantiations of the three LSTM kernels run at the
                 f32 rows' shapes (the forward's rows but H=510, the
                 backward's rows),
@@ -508,12 +512,26 @@ SCAN_ARGS = {"gae": (0.99, 0.97), "lambda_returns": (0.9, 0.8),
              "td_lambda_loss": (0.9, 0.8), "td_lambda_err": (0.9, 0.8)}
 
 
+# The chunked row-constant scan kernels: name -> (name of the launch-shape
+# function in `kernels`, instantiations for chunked_launch_info).  Names,
+# so that the script still imports in an older checkout (--digests,
+# --profile).
+CHUNKED_SCANS = {
+    "gae": ("gae_launch_shape", {"gae": ("gae_chunked_kernel", "")}),
+    "td_lambda_loss": ("td_lambda_launch_shape",
+                       {"loss": ("td_lambda_chunked_kernel",
+                                 "TdEpilogueE0")}),
+    "td_lambda_err": ("td_lambda_err_launch_shape",
+                      {"error": ("td_lambda_chunked_kernel",
+                                 "TdEpilogueE1")})}
+
+
 def scan_kernel_rows(rng, dev) -> dict:
     """The four scan kernels against their plain versions: at T=1024,
     B=4096 (timed, with bounds), at a ragged B (not a multiple of the
-    32-column block) and at T=1; td_lambda_loss must be bitwise repeatable,
-    and its rows print their launch (tiling, ptxas), the T=1024 row also
-    timing the chosen tiling against SCAN_OTHER_TILINGS."""
+    32-column block) and at T=1, each bitwise repeatable; the chunked ones
+    (CHUNKED_SCANS) print their launch (tiling, ptxas), their T=1024 rows
+    also timing the chosen tiling against SCAN_OTHER_TILINGS."""
     rows = {}
     for T, B in ((1024, 4096), (37, 1000), (1, 77)):
         value = torch.from_numpy(rng.standard_normal(
@@ -527,18 +545,16 @@ def scan_kernel_rows(rng, dev) -> dict:
             got = wrapper(value, reward, *scalars)
             again = wrapper(value, reward, *scalars)
             torch.cuda.synchronize()
-            row = {"shape": f"T={T},B={B}"}
-            if name == "td_lambda_loss":
-                if not torch.equal(got, again):
-                    raise AssertionError("td_lambda_loss: repeated runs "
-                                         "differ")
-                row["bitwise_repeatable"] = True
-            row.update(compare(f"{name} T={T},B={B}", [got],
-                               [plain(value, reward, *scalars)]))
-            if name == "td_lambda_loss":
-                row["launch"] = chunked_launch_info(
-                    kernels.td_lambda_launch_shape, T, B,
-                    {"loss": ("td_lambda_loss_kernel", "")})
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} T={T} B={B}: repeated runs "
+                                     f"differ")
+            row = {"shape": f"T={T},B={B}", "bitwise_repeatable": True,
+                   **compare(f"{name} T={T},B={B}", [got],
+                             [plain(value, reward, *scalars)])}
+            if name in CHUNKED_SCANS:
+                shape_fn = getattr(kernels, CHUNKED_SCANS[name][0])
+                row["launch"] = chunked_launch_info(shape_fn, T, B,
+                                                    CHUNKED_SCANS[name][1])
             if T == 1024:
                 row.update(kernel_ms(lambda: wrapper(value, reward,
                                                      *scalars), per_rep=10))
@@ -546,37 +562,82 @@ def scan_kernel_rows(rng, dev) -> dict:
                                                         *scalars), 3,
                                           warmup=1)
                 row["bound_ms"], row["bound_by"] = bound_ms(*bounds[name])
-                if name == "td_lambda_loss":
+                if name in CHUNKED_SCANS:
+                    launch = getattr(kernels.rl_scans, f"_{name}_cuda")
                     row["candidates"] = chunked_candidates(
-                        lambda **tiling: kernels.rl_scans._td_lambda_loss_cuda(
-                            value, reward, *scalars, **tiling),
-                        kernels.td_lambda_launch_shape, T, B)
+                        lambda **tiling: launch(value, reward, *scalars,
+                                                **tiling),
+                        shape_fn, T, B)
+                if name == "gae":
+                    row["kernel_alone_ms"] = gae_kernel_alone_ms(
+                        value, reward, *scalars)
             rows[f"{name} T={T}"] = row
     return rows
 
 
-# The card tests' shapes for kernels 6 and 9 (tests/test_torch_gpu.py):
-# partial chunks, super-tiles and column tiles.
+def gae_kernel_alone_ms(value, reward, gamma, lambda_) -> float:
+    """The GAE kernel's cold time without its wrapper's work: the
+    denominators (gae_denominators' seven small kernels) are made once,
+    outside the timed call."""
+    scans = kernels.rl_scans
+    denom = scans._gae_denominators(reward.shape[0], lambda_, reward)
+    adv = torch.empty_like(reward)
+    tiling = scans._tiling(kernels.gae_launch_shape, reward, None, None)
+    return cold_ms(lambda: scans._launch(
+        "gae", "gae_f32", (value, reward, denom, adv), gamma, lambda_,
+        *tiling))
+
+
+# The card tests' shapes for the chunked scan kernels
+# (tests/test_torch_gpu.py): partial chunks, super-tiles and column tiles.
 CHUNKED_T = (1, 7, 8, 9, 65, 1000, 1024)
 CHUNKED_B = (1, 5, 33, 4100)
-# (gamma, lambda) of the TD(lambda) loss: gamma*lambda = 0, lambda = 1,
-# gamma = 1.
+# (gamma, lambda) of the TD(lambda) loss and error: gamma*lambda = 0,
+# lambda = 1, gamma = 1.
 TD_CASES = ((0.9, 0.8), (0.9, 0.0), (0.95, 1.0), (1.0, 0.8), (1.0, 1.0))
+# (gamma, lambda) of GAE: gamma*lambda = 0, lambda = 1 (the denominators
+# grow to T - t), gamma = lambda = 1.
+GAE_CASES = ((0.99, 0.97), (0.99, 0.0), (0.95, 1.0), (1.0, 1.0))
+# The card tests' tilings (cols, chunks), and the shape they run at.
+CHUNKED_TILINGS = ((32, 16), (16, 16), (32, 8), (1, 1), (1, 16), (8, 1),
+                   (8, 3), (5, 7))
+TILINGS_SHAPE = (1000, 70)
 
 
 def chunked_scan_sweep(dev) -> dict:
-    """Kernels 6 and 9 against their plain versions at every (T, B) of
-    CHUNKED_T x CHUNKED_B, from their own seed: the linear recurrence both
-    ways with a zero, a scalar and a large (B,) boundary (steps past T must
-    be the identity, or the reverse walk loses the boundary), the TD(lambda)
-    loss at TD_CASES, bitwise repeatable.  Returns the largest errors."""
+    """The chunked scan kernels (6, 9, 10, 7) against their plain versions
+    at every (T, B) of CHUNKED_T x CHUNKED_B, from their own seed: the
+    linear recurrence both ways with a zero, a scalar and a large (B,)
+    boundary (steps past T must be the identity, or the reverse walk loses
+    the boundary), the TD(lambda) loss and error at TD_CASES and GAE at
+    GAE_CASES, each bitwise repeatable; GAE also at the PPO trainer's
+    (T, B), and GAE and the error plane at every CHUNKED_TILINGS tiling.
+    Returns the largest errors."""
     rng = np.random.default_rng(SEED + 18)
-    worst = {"linear_scan": 0.0, "td_lambda_loss": 0.0}
+    worst = {"linear_scan": 0.0, "td_lambda_loss": 0.0, "td_lambda_err": 0.0,
+             "gae": 0.0}
+
+    def check(name, label, run, want):
+        got = run()
+        if not torch.equal(got, run()):
+            raise AssertionError(f"{name} {label}: repeated runs differ")
+        err = compare(f"{name} {label}", [got], [want])["max_abs_err"]
+        worst[name] = max(worst[name], err)
+
+    def scan_cases(T, B, value, reward, names):
+        for name in names:
+            cases = GAE_CASES if name == "gae" else TD_CASES
+            for scalars in cases:
+                check(name, f"T={T} B={B} {scalars}",
+                      lambda: getattr(kernels, name)(value, reward, *scalars),
+                      getattr(kernels, name + "_plain")(value, reward,
+                                                        *scalars))
+
     shapes = 0
+    f = lambda *s: torch.from_numpy(rng.standard_normal(
+        s, dtype=np.float32)).to(dev)
     for T in CHUNKED_T:
         for B in CHUNKED_B:
-            f = lambda *s: torch.from_numpy(rng.standard_normal(
-                s, dtype=np.float32)).to(dev)
             a, b = f(T, B), torch.from_numpy(rng.uniform(
                 0.5, 1.0, (T, B)).astype(np.float32)).to(dev)
             for y in (None, torch.tensor(3.0, device=dev),
@@ -589,22 +650,26 @@ def chunked_scan_sweep(dev) -> dict:
                                   [got], [want])["max_abs_err"]
                     worst["linear_scan"] = max(worst["linear_scan"], err)
             value, reward = f(T + 1, B), f(T, B)
-            for gamma, lambda_ in TD_CASES:
-                got = kernels.td_lambda_loss(value, reward, gamma, lambda_)
-                again = kernels.td_lambda_loss(value, reward, gamma,
-                                               lambda_)
-                if not torch.equal(got, again):
-                    raise AssertionError(f"td_lambda_loss T={T} B={B}: "
-                                         f"repeated runs differ")
-                want = kernels.td_lambda_loss_plain(value, reward, gamma,
-                                                    lambda_)
-                err = compare(f"td_lambda_loss T={T} B={B} {gamma} "
-                              f"{lambda_}", [got], [want])["max_abs_err"]
-                worst["td_lambda_loss"] = max(worst["td_lambda_loss"], err)
+            scan_cases(T, B, value, reward,
+                       ("td_lambda_loss", "td_lambda_err", "gae"))
             shapes += 1
+    T, B = PPO_CFG["T"], PPO_CFG["B"]
+    scan_cases(T, B, f(T + 1, B), f(T, B), ("gae",))
+    T, B = TILINGS_SHAPE
+    value, reward = f(T + 1, B), f(T, B)
+    for name, scalars in (("gae", SCAN_ARGS["gae"]),
+                          ("td_lambda_err", SCAN_ARGS["td_lambda_err"])):
+        launch = getattr(kernels.rl_scans, f"_{name}_cuda")
+        want = getattr(kernels, name + "_plain")(value, reward, *scalars)
+        for cols, chunks in CHUNKED_TILINGS:
+            check(name, f"T={T} B={B} {cols}x{chunks}",
+                  lambda: launch(value, reward, *scalars, cols=cols,
+                                 chunks=chunks), want)
     return {"shapes": shapes, "T": CHUNKED_T, "B": CHUNKED_B,
-            "td_cases": TD_CASES, "bitwise_repeatable": True,
-            "max_abs_err": worst}
+            "td_cases": TD_CASES, "gae_cases": GAE_CASES,
+            "gae_ppo_shape": (PPO_CFG["T"], PPO_CFG["B"]),
+            "tilings": CHUNKED_TILINGS, "tilings_shape": TILINGS_SHAPE,
+            "bitwise_repeatable": True, "max_abs_err": worst}
 
 
 def linear_scan_bound(T, B, boundary: bool):

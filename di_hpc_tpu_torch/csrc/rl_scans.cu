@@ -6,13 +6,13 @@
 //   - _gae_kernel: delta_t = r_t + gamma*V_{t+1} - V_t,
 //     y_t = denom_t*delta_t + gamma*lambda*y_{t+1} (y_T = 0), adv_t = y_t /
 //     denom_t, with denom (T,) given by the caller (ops.scan.gae_denominators,
-//     so both sides divide by the same numbers);
+//     so both sides divide by the same numbers): gae_chunked_kernel;
 //   - _lret_kernel, _tdl_loss_kernel, _tdl_err_kernel, which share _lret_body:
 //     ret_{T-1} = r_{T-1} + gamma*V_T and, below it,
 //     ret_t = r_t + (gamma - gamma*lambda)*V_{t+1} + gamma*lambda*ret_{t+1}.
-//     lambda_returns_kernel, templated on its epilogue, writes the returns
-//     plane or e_t = ret_t - V_t; td_lambda_loss_kernel sums (ret_t - V_t)^2
-//     over t.
+//     lambda_returns_kernel writes the returns plane; td_lambda_chunked_kernel,
+//     templated on its epilogue, sums (ret_t - V_t)^2 over t (the loss) or
+//     writes e_t = ret_t - V_t (the error plane, the loss's backward).
 // And the two UPGO kernels, whose coefficient is a full (T, B) plane of
 // binary lambdas derived from the data (_upgo_kernel, _upgo_loss_kernel):
 // one device loop templated on its epilogue, further below.
@@ -22,17 +22,17 @@
 // error kernels move 50.3 MB each (15 us at 3.35 TB/s), the loss kernel
 // 33.6 MB (10 us), each UPGO kernel 67.1 MB (20 us).
 //
-// Two walks.  The TD(lambda) loss (td_lambda_loss_kernel) takes the chunked
-// walk of csrc/vtrace.cu, with its pieces from csrc/chunked_scan.cuh: a CTA
-// owns `cols` columns x `chunks` chunks of 8 steps, loads one super-tile
-// ahead, composes each chunk's affine pair, folds the pairs in one fixed
-// order and re-walks each chunk from its carry-in (the design note at that
-// kernel).  GAE, the returns and error planes and UPGO still walk one column
+// Two walks.  GAE and the TD(lambda) loss and error take the chunked walk of
+// csrc/vtrace.cu, with its pieces from csrc/chunked_scan.cuh: a CTA owns
+// `cols` columns x `chunks` chunks of 8 steps, loads one super-tile ahead,
+// composes each chunk's affine pair, folds the pairs in one fixed order and
+// re-walks each chunk from its carry-in (the design notes at those kernels).
+// The returns plane (lambda_returns_kernel) and UPGO still walk one column
 // with one thread, backwards, loading kUnroll steps of every stream before
 // computing them; neighbouring threads own neighbouring columns, so every
 // load and store is coalesced.  At T=1024, B=4096 that is 64 dependent round
-// trips to memory per column on only 4096 threads, 6-11x their bounds;
-// they stay on this walk, bit for bit, until each is redesigned in turn.
+// trips to memory per column on only 4096 threads, 6-8x their bounds; they
+// stay on this walk, bit for bit, until each is redesigned in turn.
 // Columns past B neither load nor store.  The loss kernels write one partial
 // per column into a (1, B) buffer that the caller sums in a fixed order (no
 // float atomics), so repeated runs are bitwise equal and a ragged B adds
@@ -47,44 +47,6 @@ using namespace chunked_scan;
 constexpr int kThreads = 32;
 constexpr int kUnroll = 16;
 
-__global__ void __launch_bounds__(kThreads)
-gae_kernel(const float* __restrict__ value, const float* __restrict__ reward,
-           const float* __restrict__ denom, float* __restrict__ adv, int T,
-           int B, float gamma, float gamma_lambda) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  float v_next = value[(size_t)T * B + b];   // V_{t+1}, starts at V_T
-  float y = 0.f;
-  for (int t0 = T - 1; t0 >= 0; t0 -= kUnroll) {
-    float rv[kUnroll], vv[kUnroll], dv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 - u;
-      rv[u] = vv[u] = 0.f;
-      dv[u] = 1.f;
-      if (t >= 0) {
-        const size_t o = (size_t)t * B + b;
-        rv[u] = __ldg(reward + o);
-        vv[u] = __ldg(value + o);
-        dv[u] = __ldg(denom + t);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 - u;
-      if (t >= 0) {
-        const float delta = rv[u] + gamma * v_next - vv[u];
-        y = dv[u] * delta + gamma_lambda * y;
-        adv[(size_t)t * B + b] = y / dv[u];
-        v_next = vv[u];
-      }
-    }
-  }
-}
-
-enum class Epilogue { kReturns, kError };
-
-template <Epilogue kEpi>
 __global__ void __launch_bounds__(kThreads)
 lambda_returns_kernel(const float* __restrict__ value,
                       const float* __restrict__ reward,
@@ -117,39 +79,17 @@ lambda_returns_kernel(const float* __restrict__ value,
         ret = rv[u] + g_eff * v_next + carry * ret;
         g_eff = gamma - gamma_lambda;
         carry = gamma_lambda;
-        const float e = ret - vv[u];
-        if (kEpi == Epilogue::kReturns) out[(size_t)t * B + b] = ret;
-        if (kEpi == Epilogue::kError) out[(size_t)t * B + b] = e;
+        out[(size_t)t * B + b] = ret;
         v_next = vv[u];
       }
     }
   }
 }
 
-template <Epilogue kEpi>
-int launch_lambda_returns(const float* value, const float* reward, float* out,
-                          int T, int B, float gamma, float gamma_lambda,
-                          void* stream) {
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  lambda_returns_kernel<kEpi><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      value, reward, out, T, B, gamma, gamma_lambda);
-  return (int)cudaGetLastError();
-}
-
-// The TD(lambda) loss partials sum_t (ret_t - V_t)^2, chunked over T.
-//
-// With the boundary ret_T = V_T, every step has the same pair coefficients:
-// ret_t = d_t + gamma*lambda * ret_{t+1}, d_t = r_t + (gamma -
-// gamma*lambda)*V_{t+1}, and the last step, r + (gamma - gamma*lambda)*V_T +
-// gamma*lambda*V_T, is _lret_body's r + gamma*V_T up to one rounding.  A
-// thread's chunk holds kChunk steps of r and the kChunk + 1 value rows V_t0
-// ... V_t0+kChunk (the row past a chunk is the next chunk's first, read again
-// from the L2).  Steps past T are the identity -- d = 0 (r and V load as 0
-// there) and coefficient 1, not gamma*lambda -- so that ret stays V_T above
-// T; zeros would give ret = 0.  The epilogue re-walks each chunk from its
-// carry-in and adds (ret_t - V_t)^2 for t < T to the thread's partial; the
-// chunk partials of a column are summed in shared memory in lane order, and
-// one partial per column goes to the (1, B) buffer.
+// A thread's chunk of the TD(lambda) and GAE walks: kChunk steps of r and
+// the kChunk + 1 value rows V_t0 ... V_t0+kChunk (the row past a chunk is
+// the next chunk's first, read again from the L2); zeros past T, before 0
+// or past B.
 struct TdChunk {
   float r[kChunk], v[kChunk + 1];
 };
@@ -171,19 +111,37 @@ __device__ __forceinline__ void load_td_chunk(TdChunk& c,
   }
 }
 
+// The TD(lambda) loss partials sum_t (ret_t - V_t)^2 (kLossSum) and the
+// error plane e_t = ret_t - V_t (kError), chunked over T.
+//
+// With the boundary ret_T = V_T, every step has the same pair coefficients:
+// ret_t = d_t + gamma*lambda * ret_{t+1}, d_t = r_t + (gamma -
+// gamma*lambda)*V_{t+1}, and the last step, r + (gamma - gamma*lambda)*V_T +
+// gamma*lambda*V_T, is _lret_body's r + gamma*V_T up to one rounding.  Steps
+// past T are the identity -- d = 0 (r and V load as 0 there) and coefficient
+// 1, not gamma*lambda -- so that ret stays V_T above T; zeros would give
+// ret = 0.  The epilogue re-walks each chunk from its carry-in.  kLossSum
+// adds (ret_t - V_t)^2 for t < T to the thread's partial; the chunk partials
+// of a column are summed in shared memory in lane order, and one partial per
+// column goes to the (1, B) buffer.  kError stores e_t for t < T and col < B
+// (coalesced: neighbouring lanes own neighbouring columns) and needs no
+// partials.  Both share every step up to the epilogue, so the loss keeps its
+// bits whichever instance runs.
+enum class TdEpilogue { kLossSum, kError };
+
+template <TdEpilogue kEpi>
 __global__ void __launch_bounds__(kMaxThreads)
-td_lambda_loss_kernel(const float* __restrict__ value,
-                      const float* __restrict__ reward,
-                      float* __restrict__ parts, int T, int B, float gamma,
-                      float gamma_lambda) {
+td_lambda_chunked_kernel(const float* __restrict__ value,
+                         const float* __restrict__ reward,
+                         float* __restrict__ out, int T, int B, float gamma,
+                         float gamma_lambda) {
   extern __shared__ float smem[];
   const int cols = blockDim.x, chunks = blockDim.y;
   const int x = threadIdx.x, own = threadIdx.y;
   const int col = blockIdx.x * cols + x;
   const int plane = cols * chunks;
-  // pairs[parity][0: A, 1: D][chunk][col]; sums[chunk][col].
+  // pairs[parity][0: A, 1: D][chunk][col]; the loss's sums[chunk][col].
   float* pairs = smem;
-  float* sums = smem + 4 * plane;
   const float g_v = gamma - gamma_lambda;
 
   const int tile = chunks * kChunk;
@@ -215,19 +173,121 @@ td_lambda_loss_kernel(const float* __restrict__ value,
       ret = d[u] + c[u] * ret;
       if (col < B && t0 + u < T) {
         const float e = ret - cur.v[u];
-        sum += e * e;
+        if constexpr (kEpi == TdEpilogue::kLossSum) {
+          sum += e * e;
+        } else {
+          out[(size_t)(t0 + u) * B + col] = e;
+        }
       }
     }
     cur = nxt;
   }
 
-  sums[own * cols + x] = sum;
-  __syncthreads();
-  if (own == 0 && col < B) {
-    float p = 0.f;
-    for (int q = 0; q < chunks; ++q) p += sums[q * cols + x];
-    parts[col] = p;
+  if constexpr (kEpi == TdEpilogue::kLossSum) {
+    float* sums = smem + 4 * plane;
+    sums[own * cols + x] = sum;
+    __syncthreads();
+    if (own == 0 && col < B) {
+      float p = 0.f;
+      for (int q = 0; q < chunks; ++q) p += sums[q * cols + x];
+      out[col] = p;
+    }
   }
+}
+
+// GAE, chunked over T: y_t = a_t + gamma*lambda * y_{t+1} from y_T = 0, with
+// a_t = denom_t * (r_t + gamma*V_{t+1} - V_t), and adv_t = y_t / denom_t.
+//
+// A thread's chunk holds td_lambda_chunked_kernel's r and V rows and the
+// chunk's kChunk denominators.  Those are one (T,) row that every column of
+// the CTA shares; they are read with __ldg, a super-tile ahead with the
+// other streams, and not staged in shared memory: the row is 4 KB at T=1024,
+// stays in L1 and L2 after the first CTA's reads, and the lanes of a warp
+// that share a chunk read the same address (one broadcast), so staging
+// would save no device-memory bytes and cost a second barrier per super-tile.
+// load_once's no-allocate hint is kept for the streams read once.  Steps
+// past T compose to the identity: a = 0 (set explicitly, since V_T loads
+// there and delta would be -V_T) and coefficient 1, denominator 1 (nothing
+// is divided by it).  The epilogue re-walks each chunk from its carry-in and
+// stores adv_t = y_t / denom_t for t < T and col < B with an IEEE divide
+// (__fdiv_rn), as the plain version and JAX divide.
+struct GaeChunk {
+  TdChunk rv;
+  float den[kChunk];
+};
+
+__device__ __forceinline__ void load_gae_chunk(GaeChunk& c,
+                                               const float* __restrict__ value,
+                                               const float* __restrict__ reward,
+                                               const float* __restrict__ denom,
+                                               int t0, int col, int T, int B) {
+  load_td_chunk(c.rv, value, reward, t0, col, T, B);
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) {
+    const int t = t0 + u;
+    c.den[u] = t >= 0 && t < T ? __ldg(denom + t) : 1.f;
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+gae_chunked_kernel(const float* __restrict__ value,
+                   const float* __restrict__ reward,
+                   const float* __restrict__ denom, float* __restrict__ adv,
+                   int T, int B, float gamma, float gamma_lambda) {
+  extern __shared__ float pairs[];   // [parity][0: A, 1: D][chunk][col]
+  const int cols = blockDim.x, chunks = blockDim.y;
+  const int x = threadIdx.x, own = threadIdx.y;
+  const int col = blockIdx.x * cols + x;
+  const int plane = cols * chunks;
+
+  const int tile = chunks * kChunk;
+  int st = (T + tile - 1) / tile - 1;            // the last super-tile
+  GaeChunk cur, nxt;
+  load_gae_chunk(cur, value, reward, denom, st * tile + own * kChunk, col, T,
+                 B);
+  float carry = 0.f;                             // y_T = 0
+  for (int parity = 0; st >= 0; --st, parity ^= 1) {
+    const int t0 = st * tile + own * kChunk;
+    load_gae_chunk(nxt, value, reward, denom, t0 - tile, col, T, B);
+
+    float a[kChunk], c[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const bool in = t0 + u < T;
+      const float delta = cur.rv.r[u] + gamma * cur.rv.v[u + 1] -
+                          cur.rv.v[u];
+      a[u] = in ? cur.den[u] * delta : 0.f;
+      c[u] = in ? gamma_lambda : 1.f;
+    }
+    float A, D;
+    compose<true>(a, c, A, D);
+    float* pa = pairs + parity * 2 * plane;
+    pa[own * cols + x] = A;
+    pa[plane + own * cols + x] = D;
+    __syncthreads();
+
+    float y = fold_pairs<true>(pa, plane, cols, chunks, x, own, carry);
+#pragma unroll
+    for (int u = kChunk - 1; u >= 0; --u) {
+      y = a[u] + c[u] * y;
+      if (col < B && t0 + u < T)
+        adv[(size_t)(t0 + u) * B + col] = __fdiv_rn(y, cur.den[u]);
+    }
+    cur = nxt;
+  }
+}
+
+// The launch of a kernel chunked over T: one CTA per `cols` columns, `chunks`
+// chunks of 8 steps to a super-tile, `floats` floats of shared memory per
+// thread.
+template <typename Kernel, typename... Args>
+int launch_chunked(Kernel kernel, int floats, int T, int B, int cols,
+                   int chunks, void* stream, Args... args) {
+  if (bad_launch(T, B, cols, chunks)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + cols - 1) / cols), block(cols, chunks);
+  const size_t smem = (size_t)floats * cols * chunks * sizeof(float);
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 // UPGO (rl_scans.py:_upgo_kernel, _upgo_loss_kernel): the binary-lambda
@@ -301,47 +361,44 @@ int launch_upgo(const float* rhos, const float* lp, const float* reward,
 
 extern "C" {
 
-// value (T+1, B), reward (T, B), denom (T,) in; adv (T, B) out.  Returns the
-// launch status.
+// value (T+1, B), reward (T, B), denom (T,) in; adv (T, B) out.  One CTA per
+// `cols` columns, `chunks` chunks of 8 steps to a super-tile (cols * chunks
+// <= 512).  Returns the launch status.
 int gae_f32(const float* value, const float* reward, const float* denom,
             float* adv, int T, int B, float gamma, float gamma_lambda,
-            void* stream) {
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  gae_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      value, reward, denom, adv, T, B, gamma, gamma_lambda);
-  return (int)cudaGetLastError();
+            int cols, int chunks, void* stream) {
+  return launch_chunked(gae_chunked_kernel, 4, T, B, cols, chunks, stream,
+                        value, reward, denom, adv, T, B, gamma, gamma_lambda);
 }
 
 // value (T+1, B), reward (T, B) in; the lambda-returns (T, B) out.
 int lambda_returns_f32(const float* value, const float* reward, float* ret,
                        int T, int B, float gamma, float gamma_lambda,
                        void* stream) {
-  return launch_lambda_returns<Epilogue::kReturns>(value, reward, ret, T, B,
-                                                   gamma, gamma_lambda,
-                                                   stream);
-}
-
-// value (T+1, B), reward (T, B) in; parts (1, B) out: sum_t (ret_t - V_t)^2
-// per column.  One CTA per `cols` columns, `chunks` chunks of 8 steps to a
-// super-tile (cols * chunks <= 512).
-int td_lambda_loss_f32(const float* value, const float* reward, float* parts,
-                       int T, int B, float gamma, float gamma_lambda,
-                       int cols, int chunks, void* stream) {
-  if (chunked_scan::bad_launch(T, B, cols, chunks))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + cols - 1) / cols), block(cols, chunks);
-  const size_t smem = (size_t)5 * cols * chunks * sizeof(float);
-  td_lambda_loss_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      value, reward, parts, T, B, gamma, gamma_lambda);
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  lambda_returns_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      value, reward, ret, T, B, gamma, gamma_lambda);
   return (int)cudaGetLastError();
 }
 
-// value (T+1, B), reward (T, B) in; e = ret - V[:-1] (T, B) out.
+// value (T+1, B), reward (T, B) in; parts (1, B) out: sum_t (ret_t - V_t)^2
+// per column.  Tiled as gae_f32.
+int td_lambda_loss_f32(const float* value, const float* reward, float* parts,
+                       int T, int B, float gamma, float gamma_lambda,
+                       int cols, int chunks, void* stream) {
+  return launch_chunked(td_lambda_chunked_kernel<TdEpilogue::kLossSum>, 5, T,
+                        B, cols, chunks, stream, value, reward, parts, T, B,
+                        gamma, gamma_lambda);
+}
+
+// value (T+1, B), reward (T, B) in; e = ret - V[:-1] (T, B) out.  Tiled as
+// gae_f32.
 int td_lambda_err_f32(const float* value, const float* reward, float* err,
-                      int T, int B, float gamma, float gamma_lambda,
-                      void* stream) {
-  return launch_lambda_returns<Epilogue::kError>(value, reward, err, T, B,
-                                                 gamma, gamma_lambda, stream);
+                      int T, int B, float gamma, float gamma_lambda, int cols,
+                      int chunks, void* stream) {
+  return launch_chunked(td_lambda_chunked_kernel<TdEpilogue::kError>, 4, T, B,
+                        cols, chunks, stream, value, reward, err, T, B, gamma,
+                        gamma_lambda);
 }
 
 // rhos, reward (T, B), value (T+1, B) in; adv (T, B) out.

@@ -38,10 +38,12 @@ from .lstm_cell import (
 )
 from .rl_scans import (
     gae,
+    gae_launch_shape,
     gae_plain,
     lambda_returns,
     lambda_returns_plain,
     td_lambda_err,
+    td_lambda_err_launch_shape,
     td_lambda_err_plain,
     td_lambda_launch_shape,
     td_lambda_loss,

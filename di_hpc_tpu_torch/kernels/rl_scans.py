@@ -22,9 +22,11 @@ d vl/d value[:-1] = 2*ct*(value - vs)/TB, and zeros to the importance
 weights, the rewards and value[T].  `vtrace_returns_adv` has the zero
 gradient of rl_scans.py:507-511.
 
-And of its row-constant-coefficient part (csrc/rl_scans.cu: the loss
-kernel chunked over T like V-trace, its launch `td_lambda_launch_shape(T,
-B)`; the others one thread per column walking time backwards):
+And of its row-constant-coefficient part (csrc/rl_scans.cu: GAE and the
+TD(lambda) loss and error chunked over T like V-trace, their launches
+`gae_launch_shape(T, B)`, `td_lambda_launch_shape(T, B)` and
+`td_lambda_err_launch_shape(T, B)`; the returns plane one thread per column
+walking time backwards):
 
   - `gae` ~ `gae_fused_pallas`: value (T+1, B), reward (T, B) -> advantage
     (T, B), dividing by `ops.scan.gae_denominators` as the JAX wrapper does.
@@ -58,7 +60,8 @@ from . import _build
 
 __all__ = ["vtrace_losses", "vtrace_losses_plain", "vtrace_returns_adv",
            "vtrace_returns_adv_plain", "vtrace_launch_shape",
-           "td_lambda_launch_shape", "chunked_launch_shape", "gae",
+           "td_lambda_launch_shape", "td_lambda_err_launch_shape",
+           "gae_launch_shape", "chunked_launch_shape", "gae",
            "gae_plain", "lambda_returns", "lambda_returns_plain",
            "td_lambda_loss", "td_lambda_loss_plain", "td_lambda_err",
            "td_lambda_err_plain", "upgo_advantages", "upgo_advantages_plain",
@@ -173,6 +176,22 @@ def td_lambda_launch_shape(T: int, B: int, sms: int = 132, cols=None,
     walks its super-tiles from the last.  The dynamic shared memory holds
     two buffers of the chunks' (A, D) pairs and the chunk partials."""
     return chunked_launch_shape("td_lambda_loss", T, B, sms, cols, chunks, 5)
+
+
+def td_lambda_err_launch_shape(T: int, B: int, sms: int = 132, cols=None,
+                               chunks=None) -> dict:
+    """The TD(lambda) error kernel's launch (chunked_launch_shape): the loss
+    kernel's walk with another epilogue, whose shared memory holds only the
+    two buffers of the chunks' (A, D) pairs."""
+    return chunked_launch_shape("td_lambda_err", T, B, sms, cols, chunks, 4)
+
+
+def gae_launch_shape(T: int, B: int, sms: int = 132, cols=None,
+                     chunks=None) -> dict:
+    """The GAE kernel's launch (chunked_launch_shape); the CTA walks its
+    super-tiles from the last.  The dynamic shared memory holds two buffers
+    of the chunks' (A, D) pairs."""
+    return chunked_launch_shape("gae", T, B, sms, cols, chunks, 4)
 
 
 def _sms(device) -> int:
@@ -375,26 +394,41 @@ def _check_pair(name, value, reward):
     return _check(name, {"value": value, "reward": reward}, T, B).values()
 
 
-def _launch(name, fn, value, reward, out, gamma, lambda_, *extra):
-    """Launch `fn` on checked inputs on the current stream; raise on a
-    refused launch."""
-    T, B = reward.shape
-    with torch.cuda.device(reward.device):
+def _launch(name, fn, tensors, gamma, lambda_, *tiling):
+    """Launch entry point `fn` on the current stream of checked tensors (its
+    pointer arguments, reward (T, B) second) and raise on a refused launch;
+    `tiling` is a chunked kernel's (cols, chunks)."""
+    T, B = tensors[1].shape
+    with torch.cuda.device(tensors[1].device):
         stream = torch.cuda.current_stream().cuda_stream
         status = getattr(_build.library().cdll, fn)(
-            value.data_ptr(), reward.data_ptr(), *extra, out.data_ptr(), T,
-            B, float(gamma), float(gamma * lambda_), stream)
+            *(t.data_ptr() for t in tensors), T, B, float(gamma),
+            float(gamma * lambda_), *tiling, stream)
     _build.check_status(name, status)
+
+
+def _tiling(shape_fn, reward, cols, chunks):
+    """(cols, chunks) of a chunked kernel's launch on reward's card."""
+    T, B = reward.shape
+    shape = shape_fn(T, B, _sms(reward.device), cols, chunks)
+    return shape["cols"], shape["chunks"]
 
 
 def _gae_forward(value, reward, gamma, lambda_):
     if _build.on_cpu(value, reward):
         return gae_plain(value, reward, gamma, lambda_)
+    return _gae_cuda(value, reward, gamma, lambda_)
+
+
+def _gae_cuda(value, reward, gamma, lambda_, cols=None, chunks=None):
+    """The GAE kernel's launch; `cols` and `chunks` override
+    gae_launch_shape's choice, to measure the candidates."""
     value, reward = _check_pair("gae", value, reward)
+    tiling = _tiling(gae_launch_shape, reward, cols, chunks)
     denom = _gae_denominators(reward.shape[0], lambda_, reward)
     adv = torch.empty_like(reward)
-    _launch("gae", "gae_f32", value, reward, adv, gamma, lambda_,
-            denom.data_ptr())
+    _launch("gae", "gae_f32", (value, reward, denom, adv), gamma, lambda_,
+            *tiling)
     gae.launches += 1
     return adv
 
@@ -404,8 +438,8 @@ def _lambda_returns_forward(value, reward, gamma, lambda_):
         return lambda_returns_plain(value, reward, gamma, lambda_)
     value, reward = _check_pair("lambda_returns", value, reward)
     ret = torch.empty_like(reward)
-    _launch("lambda_returns", "lambda_returns_f32", value, reward, ret, gamma,
-            lambda_)
+    _launch("lambda_returns", "lambda_returns_f32", (value, reward, ret),
+            gamma, lambda_)
     lambda_returns.launches += 1
     return ret
 
@@ -439,15 +473,23 @@ def td_lambda_err(value, reward, gamma: float, lambda_: float):
     the kernel or raise."""
     if _build.on_cpu(value, reward):
         return td_lambda_err_plain(value, reward, gamma, lambda_)
-    value, reward = _check_pair("td_lambda_err", value, reward)
-    err = torch.empty_like(reward)
-    _launch("td_lambda_err", "td_lambda_err_f32", value, reward, err, gamma,
-            lambda_)
-    td_lambda_err.launches += 1
-    return err
+    return _td_lambda_err_cuda(value, reward, gamma, lambda_)
 
 
 td_lambda_err.launches = 0
+
+
+def _td_lambda_err_cuda(value, reward, gamma, lambda_, cols=None,
+                        chunks=None):
+    """The error kernel's launch; `cols` and `chunks` override
+    td_lambda_err_launch_shape's choice, to measure the candidates."""
+    value, reward = _check_pair("td_lambda_err", value, reward)
+    tiling = _tiling(td_lambda_err_launch_shape, reward, cols, chunks)
+    err = torch.empty_like(reward)
+    _launch("td_lambda_err", "td_lambda_err_f32", (value, reward, err), gamma,
+            lambda_, *tiling)
+    td_lambda_err.launches += 1
+    return err
 
 
 def _td_lambda_loss_forward(value, reward, gamma, lambda_):
@@ -460,18 +502,12 @@ def _td_lambda_loss_cuda(value, reward, gamma, lambda_, cols=None,
                          chunks=None):
     """The loss kernel's launch; `cols` and `chunks` override
     td_lambda_launch_shape's choice, to measure the candidates."""
-    name = "td_lambda_loss"
-    value, reward = _check_pair(name, value, reward)
-    T, B = reward.shape
-    shape = td_lambda_launch_shape(T, B, _sms(reward.device), cols, chunks)
-    parts = torch.empty((1, B), dtype=torch.float32, device=reward.device)
-    with torch.cuda.device(reward.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _build.library().cdll.td_lambda_loss_f32(
-            value.data_ptr(), reward.data_ptr(), parts.data_ptr(), T, B,
-            float(gamma), float(gamma * lambda_), shape["cols"],
-            shape["chunks"], stream)
-    _build.check_status(name, status)
+    value, reward = _check_pair("td_lambda_loss", value, reward)
+    tiling = _tiling(td_lambda_launch_shape, reward, cols, chunks)
+    parts = torch.empty((1, reward.shape[1]), dtype=torch.float32,
+                        device=reward.device)
+    _launch("td_lambda_loss", "td_lambda_loss_f32", (value, reward, parts),
+            gamma, lambda_, *tiling)
     td_lambda_loss.launches += 1
     # One partial per column, summed by torch.sum in a fixed order: no float
     # atomics, so repeated runs are bitwise equal.

@@ -8,8 +8,9 @@ connection on the card against the CPU, and one step of chip_smoke.py's
 AlphaStar trainer on the card against the CPU; the bf16 instantiations of the
 three LSTM kernels against their plain bf16 versions, the bf16 train step on
 the card against the CPU, and strided (T, B) inputs through the RL ops;
-the chunked linear recurrence (kernel 6) and TD(lambda) loss (kernel 9)
-against their plain versions at ragged shapes, boundaries and tilings; and
+the chunked linear recurrence (kernel 6), TD(lambda) loss (kernel 9), GAE
+(kernel 7) and TD(lambda) error plane (kernel 10) against their plain
+versions at ragged shapes, boundaries, (gamma, lambda) and tilings; and
 `network.lstm_fused` with a gradient where the kernels cannot take the
 layer (H % 4 != 0, widths past each shared-memory plan, float16), against
 the same call on the CPU, with the route each layer took.
@@ -1246,6 +1247,104 @@ def test_td_lambda_loss_chunked_kernel_takes_every_tiling(cuda):
             value, reward, 0.9, 0.8, cols=cols, chunks=chunks)
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
                                    msg=f"{cols}x{chunks}")
+
+
+# -------------------------------------- chunked scans: kernels 7, 10 ----
+
+# (gamma, lambda) of GAE: the trainer's default, gamma*lambda = 0, lambda = 1
+# (the denominators grow to T - t and the chunk products stay 1), and
+# gamma = lambda = 1.
+GAE_CASES = ((0.99, 0.97), (0.99, 0.0), (0.95, 1.0), (1.0, 1.0))
+
+
+def _twice(wrapper, *args):
+    """wrapper(*args) launched twice: two launches counted, the same bits."""
+    before = wrapper.launches
+    got = wrapper(*args)
+    again = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.parametrize("B", CHUNKED_B)
+@pytest.mark.parametrize("T", CHUNKED_T)
+def test_gae_chunked_kernel_matches_plain(cuda, T, B):
+    """GAE at GAE_CASES against the plain version, bitwise equal on a second
+    run: steps past T must compose to the identity (a = 0, coefficient 1),
+    or a T that is not a multiple of the super-tile would carry -V_T into
+    the last steps."""
+    value, reward = _scan_inputs(66, T, B, cuda)
+    for gamma, lambda_ in GAE_CASES:
+        got = _twice(kernels.gae, value, reward, gamma, lambda_)
+        want = kernels.gae_plain(value, reward, gamma, lambda_)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                   msg=f"gamma={gamma} lambda={lambda_}")
+
+
+def test_gae_chunked_kernel_at_the_ppo_trainers_shape(cuda):
+    """The PPO trainer's rollouts, T=16 and B=256: 8 columns x 2 chunks in
+    each of 32 CTAs on the H100's 132 SMs."""
+    shape = kernels.gae_launch_shape(16, 256, kernels.rl_scans._sms(cuda))
+    assert (shape["cols"], shape["chunks"], shape["grid"]) == (8, 2, 32)
+    value, reward = _scan_inputs(67, 16, 256, cuda)
+    for gamma, lambda_ in GAE_CASES:
+        got = _twice(kernels.gae, value, reward, gamma, lambda_)
+        want = kernels.gae_plain(value, reward, gamma, lambda_)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                   msg=f"gamma={gamma} lambda={lambda_}")
+
+
+@pytest.mark.parametrize("B", CHUNKED_B)
+@pytest.mark.parametrize("T", CHUNKED_T)
+def test_td_lambda_err_chunked_kernel_matches_plain(cuda, T, B):
+    """The error plane at TD_CASES against the plain version, bitwise equal
+    on a second run."""
+    value, reward = _scan_inputs(68, T, B, cuda)
+    for gamma, lambda_ in TD_CASES:
+        got = _twice(kernels.td_lambda_err, value, reward, gamma, lambda_)
+        want = kernels.td_lambda_err_plain(value, reward, gamma, lambda_)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                   msg=f"gamma={gamma} lambda={lambda_}")
+
+
+@pytest.mark.parametrize("name,scalars", [("gae", (0.99, 0.97)),
+                                          ("td_lambda_err", (0.9, 0.8))])
+def test_gae_and_td_lambda_err_chunked_kernels_take_every_tiling(
+        cuda, name, scalars):
+    T, B = 1000, 70
+    value, reward = _scan_inputs(69, T, B, cuda)
+    want = getattr(kernels, name + "_plain")(value, reward, *scalars)
+    launch = getattr(kernels.rl_scans, f"_{name}_cuda")
+    for cols, chunks in CHUNKED_TILINGS:
+        got = launch(value, reward, *scalars, cols=cols, chunks=chunks)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                   msg=f"{cols}x{chunks}")
+
+
+def test_gae_and_td_lambda_err_refuse_a_tiling_past_512_threads(cuda):
+    """64 x 16 threads: the wrappers raise before a launch, and the C entry
+    points return cudaErrorInvalidValue (1) without launching."""
+    T, B = 20, 40
+    value, reward = _scan_inputs(70, T, B, cuda)
+    for name in ("gae", "td_lambda_err"):
+        with pytest.raises(ValueError, match="exceed 512 threads"):
+            getattr(kernels.rl_scans, f"_{name}_cuda")(
+                value, reward, 0.9, 0.8, cols=64, chunks=16)
+    out = torch.full_like(reward, 7.0)
+    denom = torch.ones(T, device=cuda)
+    lib = _build.library().cdll
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = lambda *ts: [t.data_ptr() for t in ts]
+    statuses = [
+        lib.gae_f32(*ptr(value, reward, denom, out), T, B, 0.9, 0.72, 64, 16,
+                    stream),
+        lib.td_lambda_err_f32(*ptr(value, reward, out), T, B, 0.9, 0.72, 64,
+                              16, stream)]
+    torch.cuda.synchronize()
+    assert statuses == [1, 1]
+    assert torch.equal(out, torch.full_like(reward, 7.0))
 
 
 # ------------------------------------------------ lstm_fused routing ----

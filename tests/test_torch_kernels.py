@@ -159,12 +159,14 @@ def test_vtrace_launch_shape_covers_the_planes(T, B):
 @pytest.mark.parametrize("B", [1, 5, 33, 4096, 4100])
 @pytest.mark.parametrize("T", [1, 7, 8, 9, 65, 1000, 1024])
 @pytest.mark.parametrize("shape_fn", ["linear_scan_launch_shape",
-                                      "td_lambda_launch_shape"])
+                                      "td_lambda_launch_shape",
+                                      "td_lambda_err_launch_shape",
+                                      "gae_launch_shape"])
 def test_chunked_scan_launch_shapes_cover_the_planes(shape_fn, T, B):
-    """Kernels 6 and 9 take the V-trace kernels' tiling: the tiles cover T
-    and B, a CTA holds at most 512 threads, its shared memory (two buffers
-    of (A, D) pairs, and the loss's chunk partials) fits the H100's 227 KB,
-    and the cols and chunks overrides are taken as given."""
+    """Kernels 6, 9, 10 and 7 take the V-trace kernels' tiling: the tiles
+    cover T and B, a CTA holds at most 512 threads, its shared memory (two
+    buffers of (A, D) pairs, and the loss's chunk partials) fits the H100's
+    227 KB, and the cols and chunks overrides are taken as given."""
     fn = getattr(kernels, shape_fn)
     shape = fn(T, B)
     assert shape == {**kernels.vtrace_launch_shape(T, B),
@@ -175,12 +177,20 @@ def test_chunked_scan_launch_shapes_cover_the_planes(shape_fn, T, B):
     assert steps == shape["chunks"] * 8 and (tiles - 1) * steps < T <= \
         tiles * steps
     assert shape["threads"] == shape["cols"] * shape["chunks"] <= 512
-    floats = 4 if shape_fn.startswith("linear") else 5
+    floats = 5 if shape_fn == "td_lambda_launch_shape" else 4
     assert shape["smem_bytes"] == floats * 4 * shape["threads"] <= 232448
     assert fn(T, B, 132, 16, 16)["grid"] == -(-B // 16)
     assert fn(T, B, 132, 5, 7)["super_tile_steps"] == 56
     with pytest.raises(ValueError, match="exceed 512 threads"):
         fn(T, B, 132, 64, 16)
+
+
+def test_gae_launch_shape_at_the_ppo_trainers_shape():
+    """The PPO trainer's rollouts (T=16, B=256) take 8 columns x 2 chunks, a
+    grid of 32 CTAs: narrower tiles, so that the grid fills more SMs."""
+    shape = kernels.gae_launch_shape(16, 256)
+    assert (shape["cols"], shape["chunks"], shape["grid"]) == (8, 2, 32)
+    assert (shape["threads"], shape["super_tiles"]) == (16, 1)
 
 
 def test_non_cpu_inputs_go_to_the_kernel_checks_not_the_plain_version():
