@@ -50,19 +50,22 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 zero, a scalar and a (B,) boundary, upgo_advantages,
                 upgo_loss) run at T=1024, B=4096, at a ragged B and at T=1;
                 the four row-constant ones and upgo_loss must be bitwise
-                repeatable.  The four chunked scan kernels (linear_scan,
-                td_lambda_loss, td_lambda_err, gae) print their launch
-                (columns and chunks per CTA, super-tiles, ptxas' registers
-                and spills), time the chosen tiling against 16x16 and 32x8
-                in turns at T=1024, and are held against their plain
-                versions at every shape of the card tests (T = 1, 7, 8, 9,
-                65, 1000, 1024 x B = 1, 5, 33, 4100; both directions with a
-                zero, a scalar and a large (B,) boundary; the loss and the
-                error plane at gamma*lambda = 0, lambda = 1 and gamma = 1,
-                GAE at gamma*lambda = 0, lambda = 1 and gamma = lambda = 1,
-                bitwise repeatable), GAE also at the PPO trainer's T=16,
-                B=256, and GAE and the error plane at every tiling of the
-                card tests.
+                repeatable.  The six chunked scan kernels (linear_scan,
+                td_lambda_loss, td_lambda_err, gae, lambda_returns,
+                upgo_loss) print their launch (columns and chunks per CTA,
+                super-tiles, ptxas' registers and spills), time the chosen
+                tiling against 16x16 and 32x8 in turns at T=1024 (upgo_loss
+                also without its wrapper's work), and are held against their
+                plain versions at every shape of the card tests (T = 1, 7,
+                8, 9, 65, 1000, 1024 x B = 1, 5, 33, 4100; both directions
+                with a zero, a scalar and a large (B,) boundary; the loss,
+                the error and the returns planes at gamma*lambda = 0,
+                lambda = 1 and gamma = 1, GAE at gamma*lambda = 0, lambda =
+                1 and gamma = lambda = 1, the UPGO loss on normal inputs and
+                on integer-valued ones, where it must equal the plain
+                version; bitwise repeatable), GAE also at the PPO trainer's
+                T=16, B=256, and GAE, the error and returns planes and the
+                UPGO loss at every tiling of the card tests.
                 The bf16 instantiations of the three LSTM kernels run at the
                 f32 rows' shapes (the forward's rows but H=510, the
                 backward's rows),
@@ -142,7 +145,8 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 (forward, serving loop, V-trace, train step, the three
                 on-policy calls, the UPGO loss, the AlphaStar train step and
                 the bf16 train step), of the f32 and bf16 train steps at
-                B=32 and of phase upgo's four scan entry points: device
+                B=32, of the weighted `ops.td_lambda_error` at T=1024,
+                B=4096 and of phase upgo's four scan entry points: device
                 busy time, idle share of the window and the top kernels by
                 device time.
 
@@ -518,6 +522,9 @@ SCAN_ARGS = {"gae": (0.99, 0.97), "lambda_returns": (0.9, 0.8),
 # --profile).
 CHUNKED_SCANS = {
     "gae": ("gae_launch_shape", {"gae": ("gae_chunked_kernel", "")}),
+    "lambda_returns": ("lambda_returns_launch_shape",
+                       {"returns": ("td_lambda_chunked_kernel",
+                                    "TdEpilogueE2")}),
     "td_lambda_loss": ("td_lambda_launch_shape",
                        {"loss": ("td_lambda_chunked_kernel",
                                  "TdEpilogueE0")}),
@@ -605,24 +612,42 @@ TILINGS_SHAPE = (1000, 70)
 
 
 def chunked_scan_sweep(dev) -> dict:
-    """The chunked scan kernels (6, 9, 10, 7) against their plain versions
-    at every (T, B) of CHUNKED_T x CHUNKED_B, from their own seed: the
-    linear recurrence both ways with a zero, a scalar and a large (B,)
+    """The chunked scan kernels (6, 9, 10, 7, 8, 12) against their plain
+    versions at every (T, B) of CHUNKED_T x CHUNKED_B, from their own seed:
+    the linear recurrence both ways with a zero, a scalar and a large (B,)
     boundary (steps past T must be the identity, or the reverse walk loses
-    the boundary), the TD(lambda) loss and error at TD_CASES and GAE at
-    GAE_CASES, each bitwise repeatable; GAE also at the PPO trainer's
-    (T, B), and GAE and the error plane at every CHUNKED_TILINGS tiling.
+    the boundary), the TD(lambda) loss, error and returns at TD_CASES, GAE
+    at GAE_CASES and the UPGO loss on normal and on integer-valued inputs
+    (exact ties and sums: equal to the plain version), each bitwise
+    repeatable; GAE also at the PPO trainer's (T, B), and GAE, the error
+    and returns planes and the UPGO loss at every CHUNKED_TILINGS tiling.
     Returns the largest errors."""
     rng = np.random.default_rng(SEED + 18)
+    # UPGO's inputs from a seed of their own, so that the other kernels'
+    # inputs stay those of the sweep before it took UPGO.
+    upgo_rng = np.random.default_rng(SEED + 21)
     worst = {"linear_scan": 0.0, "td_lambda_loss": 0.0, "td_lambda_err": 0.0,
-             "gae": 0.0}
+             "gae": 0.0, "lambda_returns": 0.0, "upgo_loss": 0.0}
 
-    def check(name, label, run, want):
+    def check(name, label, run, want, exact=False):
         got = run()
         if not torch.equal(got, run()):
             raise AssertionError(f"{name} {label}: repeated runs differ")
+        if exact and not torch.equal(got, want):
+            raise AssertionError(f"{name} {label}: {float(got)} is not the "
+                                 f"plain version's {float(want)}")
         err = compare(f"{name} {label}", [got], [want])["max_abs_err"]
         worst[name] = max(worst[name], err)
+
+    def upgo_inputs(T, B, integer):
+        if integer:
+            reward, value, lp = (torch.from_numpy(upgo_rng.integers(
+                -2, 3, s).astype(np.float32)).to(dev)
+                for s in ((T, B), (T + 1, B), (T, B)))
+            return torch.ones((T, B), device=dev), lp, reward, value
+        g = lambda *s: torch.from_numpy(upgo_rng.standard_normal(
+            s, dtype=np.float32)).to(dev)
+        return torch.exp(0.3 * g(T, B)), -g(T, B).abs(), g(T, B), g(T + 1, B)
 
     def scan_cases(T, B, value, reward, names):
         for name in names:
@@ -651,25 +676,33 @@ def chunked_scan_sweep(dev) -> dict:
                     worst["linear_scan"] = max(worst["linear_scan"], err)
             value, reward = f(T + 1, B), f(T, B)
             scan_cases(T, B, value, reward,
-                       ("td_lambda_loss", "td_lambda_err", "gae"))
+                       ("td_lambda_loss", "td_lambda_err", "gae",
+                        "lambda_returns"))
+            for integer in (False, True):
+                args = upgo_inputs(T, B, integer)
+                check("upgo_loss", f"T={T} B={B} integer={integer}",
+                      lambda: kernels.upgo_loss(*args),
+                      kernels.upgo_loss_plain(*args), exact=integer)
             shapes += 1
     T, B = PPO_CFG["T"], PPO_CFG["B"]
     scan_cases(T, B, f(T + 1, B), f(T, B), ("gae",))
     T, B = TILINGS_SHAPE
     value, reward = f(T + 1, B), f(T, B)
-    for name, scalars in (("gae", SCAN_ARGS["gae"]),
-                          ("td_lambda_err", SCAN_ARGS["td_lambda_err"])):
+    tiled = [(name, (value, reward, *SCAN_ARGS[name]))
+             for name in ("gae", "td_lambda_err", "lambda_returns")]
+    tiled.append(("upgo_loss", upgo_inputs(T, B, False)))
+    for name, args in tiled:
         launch = getattr(kernels.rl_scans, f"_{name}_cuda")
-        want = getattr(kernels, name + "_plain")(value, reward, *scalars)
+        want = getattr(kernels, name + "_plain")(*args)
         for cols, chunks in CHUNKED_TILINGS:
             check(name, f"T={T} B={B} {cols}x{chunks}",
-                  lambda: launch(value, reward, *scalars, cols=cols,
-                                 chunks=chunks), want)
+                  lambda: launch(*args, cols=cols, chunks=chunks), want)
     return {"shapes": shapes, "T": CHUNKED_T, "B": CHUNKED_B,
             "td_cases": TD_CASES, "gae_cases": GAE_CASES,
             "gae_ppo_shape": (PPO_CFG["T"], PPO_CFG["B"]),
             "tilings": CHUNKED_TILINGS, "tilings_shape": TILINGS_SHAPE,
-            "bitwise_repeatable": True, "max_abs_err": worst}
+            "bitwise_repeatable": True, "upgo_loss_integer_inputs_exact": True,
+            "max_abs_err": worst}
 
 
 def linear_scan_bound(T, B, boundary: bool):
@@ -687,12 +720,17 @@ def upgo_bounds(T, B):
             "upgo_loss": (4 * (4 * T * B + 2 * B), 7 * T * B)}
 
 
+# The chunked UPGO loss kernel's instantiation, for chunked_launch_info.
+UPGO_LOSS_INSTANCES = {"loss": ("upgo_chunked_kernel", "UpgoEpilogueE0")}
+
+
 def full_plane_kernel_rows(rng, dev) -> dict:
     """Kernels 6, 11 and 12 against their plain versions at T=1024, B=4096
     (timed, with bounds), at a ragged B and at T=1; the linear recurrence in
-    both directions with a zero, a scalar and a (B,) boundary, each row with
-    its launch (tiling, ptxas), the T=1024 rows also timing the chosen
-    tiling against SCAN_OTHER_TILINGS; upgo_loss must be bitwise
+    both directions with a zero, a scalar and a (B,) boundary; the chunked
+    ones (6, 12) with their launch (tiling, ptxas), their T=1024 rows also
+    timing the chosen tiling against SCAN_OTHER_TILINGS, and kernel 12's
+    the kernel alone (upgo_loss_kernel_alone_ms); upgo_loss must be bitwise
     repeatable."""
     from di_hpc_tpu_torch.kernels.linear_scan import _linear_scan
 
@@ -748,12 +786,36 @@ def full_plane_kernel_rows(rng, dev) -> dict:
                     raise AssertionError("upgo_loss: repeated runs differ")
                 row["bitwise_repeatable"] = True
             row.update(compare(f"{name} T={T},B={B}", [got], [plain(*args)]))
+            if name == "upgo_loss":
+                row["launch"] = chunked_launch_info(
+                    kernels.upgo_loss_launch_shape, T, B, UPGO_LOSS_INSTANCES)
             if T == 1024:
                 row.update(kernel_ms(lambda: wrapper(*args), per_rep=10))
                 row["plain_ms"] = cuda_ms(lambda: plain(*args), 3, warmup=1)
                 row["bound_ms"], row["bound_by"] = bound_ms(*bounds[name])
+                if name == "upgo_loss":
+                    row["candidates"] = chunked_candidates(
+                        lambda **tiling: kernels.rl_scans._upgo_loss_cuda(
+                            *args, **tiling),
+                        kernels.upgo_loss_launch_shape, T, B)
+                    row["kernel_alone_ms"] = upgo_loss_kernel_alone_ms(*args)
             rows[f"{name} T={T}"] = row
     return rows
+
+
+def upgo_loss_kernel_alone_ms(rhos, lp, reward, value) -> float:
+    """The UPGO loss kernel's cold time without its wrapper's work: the
+    input checks, the tiling, the partials' allocation, `parts.sum` and the
+    scaling stay outside the timed call, which is the entry point alone."""
+    T, B = reward.shape
+    parts = torch.empty((1, B), device=reward.device)
+    tiling = kernels.rl_scans._tiling(kernels.upgo_loss_launch_shape, reward,
+                                      None, None)
+    entry = _build.library().cdll.upgo_loss_f32
+    ptrs = [t.data_ptr() for t in (rhos, lp, reward, value, parts)]
+    stream = torch.cuda.current_stream().cuda_stream
+    _build.check_status("upgo_loss", entry(*ptrs, T, B, *tiling, stream))
+    return cold_ms(lambda: entry(*ptrs, T, B, *tiling, stream))
 
 
 def bound_ms(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
@@ -2108,8 +2170,11 @@ def upgo_timed_calls(x, as_np, batches_np, dev):
 def profile_one(fn) -> dict:
     """torch.profiler over one call of fn after a warm-up call: device busy
     time (the sum of kernel and copy times on the one stream), the wall time
-    of the window (profiler overhead included) and the top kernels by device
-    time."""
+    of the window (profiler overhead included), the top kernels by device
+    time and, under `port`, every kernel of the port that ran (they live in
+    file-scope anonymous namespaces, so their names start with
+    "(anonymous namespace)::", after "void " where they return nothing;
+    PyTorch's few such kernels name their at:: functors)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2127,17 +2192,22 @@ def profile_one(fn) -> dict:
             and not getattr(e, "is_user_annotation", False)]
     rows.sort(key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows) / 1e3
+    entry = lambda k, c, t: {"kernel": k[:120], "count": c, "ms": t / 1e3}
+    ours = "(anonymous namespace)::"
+    port = [entry(*r) for r in rows
+            if r[0].removeprefix("void ").startswith(ours)
+            and "at::" not in r[0]]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-            "top": [{"kernel": k[:120], "count": c, "ms": t / 1e3}
-                    for k, c, t in rows[:10]]}
+            "top": [entry(*r) for r in rows[:10]], "port": port}
 
 
 def phase_profile(dev) -> dict:
     """profile_one over each timed call of the slice, the train step at
     B=256 and at B=32 (V1) in float32 and in bf16, the three on-policy
-    calls, the UPGO loss, the AlphaStar train step and the four scan entry
-    points of phase upgo (kernel 6's launches)."""
+    calls and the weighted ops.td_lambda_error (kernel 8's launch), the
+    UPGO loss, the AlphaStar train step and the four scan entry points of
+    phase upgo (kernel 6's launches)."""
     _, params, obs, serve_obs, _, _, _, big_x = slice_inputs(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
@@ -2169,6 +2239,10 @@ def phase_profile(dev) -> dict:
             x, ppo_params(rng, **PPO_CFG),
             ppo_rollouts(rng, 1, **PPO_CFG), dev).items():
         out[name] = profile_one(fn)
+    # The weighted call, whose returns plane is kernel 8's one launch.
+    out["td_lambda_weighted_T1024_B4096"] = profile_one(
+        lambda: ops.td_lambda_error(ops.td_lambda_data(
+            x["value"], x["reward"], x["weight"]), 0.9, 0.8))
     rng = np.random.default_rng(SEED + 7)
     x = to_dev(upgo_arrays(rng), dev)
     as_np = alphastar_arrays(rng, **AS_CFG)

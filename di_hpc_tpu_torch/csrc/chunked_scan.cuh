@@ -1,6 +1,7 @@
 // What the scan kernels chunked over T share: the linear recurrence
-// (csrc/linear_scan.cu) and the TD(lambda) loss (csrc/rl_scans.cu).  Their
-// walk is csrc/vtrace.cu's, which keeps its own copy of these pieces.
+// (csrc/linear_scan.cu), and GAE, the TD(lambda) returns, loss and error and
+// the UPGO loss (csrc/rl_scans.cu).  Their walk is csrc/vtrace.cu's, which
+// keeps its own copy of these pieces.
 //
 // A first-order affine recurrence, y = a_u + b_u * y taken step by step in
 // the walk's direction, composes over a run of steps into one pair (A, D):
@@ -80,6 +81,23 @@ __device__ __forceinline__ float fold_pairs(const float* pa, int plane,
     carry = pa[plane + q * cols + x] + pa[q * cols + x] * carry;
   }
   return in;
+}
+
+// The loss kernels' epilogue: each thread's partial goes to sums[own * cols
+// + x] (shared memory apart from the pair buffers); after one barrier, the
+// thread of chunk 0 adds its column's partials in chunk order and stores the
+// column's partial to out[col] for col < B (no float atomics).
+__device__ __forceinline__ void store_column_sum(float* sums, float sum,
+                                                 int cols, int chunks, int x,
+                                                 int own, int col, int B,
+                                                 float* out) {
+  sums[own * cols + x] = sum;
+  __syncthreads();
+  if (own == 0 && col < B) {
+    float p = 0.f;
+    for (int q = 0; q < chunks; ++q) p += sums[q * cols + x];
+    out[col] = p;
+  }
 }
 
 // The launch check shared by the entry points: (T, B) and the tiling.

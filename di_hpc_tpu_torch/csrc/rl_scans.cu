@@ -9,30 +9,31 @@
 //     so both sides divide by the same numbers): gae_chunked_kernel;
 //   - _lret_kernel, _tdl_loss_kernel, _tdl_err_kernel, which share _lret_body:
 //     ret_{T-1} = r_{T-1} + gamma*V_T and, below it,
-//     ret_t = r_t + (gamma - gamma*lambda)*V_{t+1} + gamma*lambda*ret_{t+1}.
-//     lambda_returns_kernel writes the returns plane; td_lambda_chunked_kernel,
-//     templated on its epilogue, sums (ret_t - V_t)^2 over t (the loss) or
-//     writes e_t = ret_t - V_t (the error plane, the loss's backward).
+//     ret_t = r_t + (gamma - gamma*lambda)*V_{t+1} + gamma*lambda*ret_{t+1}:
+//     td_lambda_chunked_kernel, templated on its epilogue, writes the returns
+//     plane, sums (ret_t - V_t)^2 over t (the loss) or writes e_t = ret_t -
+//     V_t (the error plane, the loss's backward).
 // And the two UPGO kernels, whose coefficient is a full (T, B) plane of
-// binary lambdas derived from the data (_upgo_kernel, _upgo_loss_kernel):
-// one device loop templated on its epilogue, further below.
+// binary lambdas derived from the data (_upgo_kernel, _upgo_loss_kernel),
+// further below.
 //
 // What bounds it on an H100: memory.  Each input element is read once and
 // costs under 10 f32 operations.  At T=1024, B=4096 the GAE, returns and
 // error kernels move 50.3 MB each (15 us at 3.35 TB/s), the loss kernel
 // 33.6 MB (10 us), each UPGO kernel 67.1 MB (20 us).
 //
-// Two walks.  GAE and the TD(lambda) loss and error take the chunked walk of
-// csrc/vtrace.cu, with its pieces from csrc/chunked_scan.cuh: a CTA owns
-// `cols` columns x `chunks` chunks of 8 steps, loads one super-tile ahead,
-// composes each chunk's affine pair, folds the pairs in one fixed order and
-// re-walks each chunk from its carry-in (the design notes at those kernels).
-// The returns plane (lambda_returns_kernel) and UPGO still walk one column
-// with one thread, backwards, loading kUnroll steps of every stream before
-// computing them; neighbouring threads own neighbouring columns, so every
-// load and store is coalesced.  At T=1024, B=4096 that is 64 dependent round
-// trips to memory per column on only 4096 threads, 6-8x their bounds; they
-// stay on this walk, bit for bit, until each is redesigned in turn.
+// Two walks.  GAE, the TD(lambda) returns, loss and error and the UPGO loss
+// take the chunked walk of csrc/vtrace.cu, with its pieces from
+// csrc/chunked_scan.cuh: a CTA owns `cols` columns x `chunks` chunks of 8
+// steps, loads one super-tile ahead, composes each chunk's affine pair,
+// folds the pairs in one fixed order and re-walks each chunk from its
+// carry-in (the design notes at those kernels).  The UPGO advantage
+// (upgo_kernel) still walks one column with one thread, backwards, loading
+// kUnroll steps of every stream before computing them; neighbouring threads
+// own neighbouring columns, so every load and store is coalesced.  At
+// T=1024, B=4096 that is 64 dependent round trips to memory per column on
+// only 4096 threads, 6x its bound; it stays on this walk, bit for bit,
+// until it is redesigned in turn.
 // Columns past B neither load nor store.  The loss kernels write one partial
 // per column into a (1, B) buffer that the caller sums in a fixed order (no
 // float atomics), so repeated runs are bitwise equal and a ragged B adds
@@ -46,45 +47,6 @@ using namespace chunked_scan;
 
 constexpr int kThreads = 32;
 constexpr int kUnroll = 16;
-
-__global__ void __launch_bounds__(kThreads)
-lambda_returns_kernel(const float* __restrict__ value,
-                      const float* __restrict__ reward,
-                      float* __restrict__ out, int T, int B, float gamma,
-                      float gamma_lambda) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  float v_next = value[(size_t)T * B + b];   // V_{t+1}, starts at V_T
-  float ret = 0.f;
-  // The last step has coefficient gamma on V_T and none on the carry
-  // (_lret_body's b_{T-1} = 0); every earlier step gamma - gamma*lambda and
-  // gamma*lambda.
-  float g_eff = gamma, carry = 0.f;
-  for (int t0 = T - 1; t0 >= 0; t0 -= kUnroll) {
-    float rv[kUnroll], vv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 - u;
-      rv[u] = vv[u] = 0.f;
-      if (t >= 0) {
-        const size_t o = (size_t)t * B + b;
-        rv[u] = __ldg(reward + o);
-        vv[u] = __ldg(value + o);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 - u;
-      if (t >= 0) {
-        ret = rv[u] + g_eff * v_next + carry * ret;
-        g_eff = gamma - gamma_lambda;
-        carry = gamma_lambda;
-        out[(size_t)t * B + b] = ret;
-        v_next = vv[u];
-      }
-    }
-  }
-}
 
 // A thread's chunk of the TD(lambda) and GAE walks: kChunk steps of r and
 // the kChunk + 1 value rows V_t0 ... V_t0+kChunk (the row past a chunk is
@@ -111,8 +73,9 @@ __device__ __forceinline__ void load_td_chunk(TdChunk& c,
   }
 }
 
-// The TD(lambda) loss partials sum_t (ret_t - V_t)^2 (kLossSum) and the
-// error plane e_t = ret_t - V_t (kError), chunked over T.
+// The TD(lambda) loss partials sum_t (ret_t - V_t)^2 (kLossSum), the error
+// plane e_t = ret_t - V_t (kError) and the returns plane ret_t (kReturns),
+// chunked over T.
 //
 // With the boundary ret_T = V_T, every step has the same pair coefficients:
 // ret_t = d_t + gamma*lambda * ret_{t+1}, d_t = r_t + (gamma -
@@ -123,11 +86,13 @@ __device__ __forceinline__ void load_td_chunk(TdChunk& c,
 // ret = 0.  The epilogue re-walks each chunk from its carry-in.  kLossSum
 // adds (ret_t - V_t)^2 for t < T to the thread's partial; the chunk partials
 // of a column are summed in shared memory in lane order, and one partial per
-// column goes to the (1, B) buffer.  kError stores e_t for t < T and col < B
-// (coalesced: neighbouring lanes own neighbouring columns) and needs no
-// partials.  Both share every step up to the epilogue, so the loss keeps its
-// bits whichever instance runs.
-enum class TdEpilogue { kLossSum, kError };
+// column goes to the (1, B) buffer.  kError stores e_t and kReturns ret_t
+// for t < T and col < B (coalesced: neighbouring lanes own neighbouring
+// columns); neither needs partials.  All three share every step up to the
+// epilogue, so each keeps its bits whichever instances run.  The returns'
+// last step, d + gamma*lambda*V_T, is _lret_body's r + gamma*V_T up to the
+// one rounding above; the plain version keeps JAX's form.
+enum class TdEpilogue { kLossSum, kError, kReturns };
 
 template <TdEpilogue kEpi>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -175,24 +140,19 @@ td_lambda_chunked_kernel(const float* __restrict__ value,
         const float e = ret - cur.v[u];
         if constexpr (kEpi == TdEpilogue::kLossSum) {
           sum += e * e;
-        } else {
+        } else if constexpr (kEpi == TdEpilogue::kError) {
           out[(size_t)(t0 + u) * B + col] = e;
+        } else {
+          out[(size_t)(t0 + u) * B + col] = ret;
         }
       }
     }
     cur = nxt;
   }
 
-  if constexpr (kEpi == TdEpilogue::kLossSum) {
-    float* sums = smem + 4 * plane;
-    sums[own * cols + x] = sum;
-    __syncthreads();
-    if (own == 0 && col < B) {
-      float p = 0.f;
-      for (int q = 0; q < chunks; ++q) p += sums[q * cols + x];
-      out[col] = p;
-    }
-  }
+  if constexpr (kEpi == TdEpilogue::kLossSum)
+    store_column_sum(smem + 4 * plane, sum, cols, chunks, x, own, col, B,
+                     out);
 }
 
 // GAE, chunked over T: y_t = a_t + gamma*lambda * y_{t+1} from y_T = 0, with
@@ -291,8 +251,7 @@ int launch_chunked(Kernel kernel, int floats, int T, int B, int cols,
 }
 
 // UPGO (rl_scans.py:_upgo_kernel, _upgo_loss_kernel): the binary-lambda
-// return with gamma = 1, walking backwards with r_{t+1}, V_{t+2} and V_{t+1}
-// carried:
+// return with gamma = 1:
 //   d_t   = 1[r_{t+1} + V_{t+2} >= V_{t+1}], d_{T-1} = 0 (the horizon cut);
 //   a_t   = r_t + (1 - d_t) * V_{t+1};
 //   ret_t = a_t + d_t * ret_{t+1};
@@ -300,14 +259,112 @@ int launch_chunked(Kernel kernel, int floats, int T, int B, int cols,
 // The decision is a branch on data: r_{t+1} + V_{t+2} is one rounded add
 // (__fadd_rn, never contracted into a multiply-add), as in the plain version
 // and the JAX kernel, so all three take the same branch at a tie.  With d
-// binary the other products are exact.  The epilogue writes adv, or sums
-// adv * logp per column into a (1, B) buffer.
-enum class UpgoEpilogue { kAdvantage, kLossSum };
+// binary the other products are exact: a_t is r_t where d_t = 1, else the
+// rounded add r_t + V_{t+1}.
+//
+// The loss partials sum_t adv_t * lp_t (kLossSum, the one epilogue so far: the
+// advantage plane still takes upgo_kernel below), chunked over T as
+// td_lambda_chunked_kernel is.  Each step is the pair (a_t, d_t); steps past T
+// compose to the identity (a = 0, coefficient 1), and d_{T-1} = 0 cuts the
+// carry from above T, so the walk starts from carry 0.  A chunk's decisions
+// read one row of r and two of V past it: the next chunk's first rows, read
+// again from the L2, as TdChunk reads V.  Within a run of d = 1 the chunk
+// pairs add rewards in another order than a one-step walk would (the sums are
+// reassociated); integer-valued inputs still sum exactly.  The epilogue
+// re-walks each chunk from its carry-in and adds adv_t * lp_t for t < T and
+// col < B to the thread's partial; store_column_sum puts one partial per
+// column into the (1, B) buffer, as in td_lambda_chunked_kernel<kLossSum>.
+struct UpgoChunk {
+  float rho[kChunk], lp[kChunk], r[kChunk + 1], v[kChunk + 2];
+};
+
+__device__ __forceinline__ void load_upgo_chunk(
+    UpgoChunk& c, const float* __restrict__ rhos, const float* __restrict__ lp,
+    const float* __restrict__ reward, const float* __restrict__ value, int t0,
+    int col, int T, int B) {
+  const bool in_col = col < B && t0 >= 0;
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) {
+    const bool in = in_col && t0 + u < T;
+    const size_t o = in ? (size_t)(t0 + u) * B + col : 0;
+    c.rho[u] = load_once(rhos + o, in);
+    c.lp[u] = load_once(lp + o, in);
+  }
+#pragma unroll
+  for (int u = 0; u <= kChunk; ++u) {
+    const bool in = in_col && t0 + u < T;
+    c.r[u] = load_once(reward + (in ? (size_t)(t0 + u) * B + col : 0), in);
+  }
+#pragma unroll
+  for (int u = 0; u <= kChunk + 1; ++u) {
+    const bool in = in_col && t0 + u <= T;
+    c.v[u] = load_once(value + (in ? (size_t)(t0 + u) * B + col : 0), in);
+  }
+}
+
+enum class UpgoEpilogue { kLossSum };
 
 template <UpgoEpilogue kEpi>
+__global__ void __launch_bounds__(kMaxThreads)
+upgo_chunked_kernel(const float* __restrict__ rhos,
+                    const float* __restrict__ lp,
+                    const float* __restrict__ reward,
+                    const float* __restrict__ value, float* __restrict__ out,
+                    int T, int B) {
+  extern __shared__ float smem[];
+  const int cols = blockDim.x, chunks = blockDim.y;
+  const int x = threadIdx.x, own = threadIdx.y;
+  const int col = blockIdx.x * cols + x;
+  const int plane = cols * chunks;
+  // pairs[parity][0: A, 1: D][chunk][col]; the loss's sums[chunk][col].
+  float* pairs = smem;
+
+  const int tile = chunks * kChunk;
+  int st = (T + tile - 1) / tile - 1;            // the last super-tile
+  UpgoChunk cur, nxt;
+  load_upgo_chunk(cur, rhos, lp, reward, value, st * tile + own * kChunk, col,
+                  T, B);
+  float carry = 0.f;                             // cut by d_{T-1} = 0
+  float sum = 0.f;
+  for (int parity = 0; st >= 0; --st, parity ^= 1) {
+    const int t0 = st * tile + own * kChunk;
+    load_upgo_chunk(nxt, rhos, lp, reward, value, t0 - tile, col, T, B);
+
+    float a[kChunk], c[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int t = t0 + u;
+      const bool d = t < T - 1 &&
+                     __fadd_rn(cur.r[u + 1], cur.v[u + 2]) >= cur.v[u + 1];
+      a[u] = t >= T ? 0.f : d ? cur.r[u] : __fadd_rn(cur.r[u], cur.v[u + 1]);
+      c[u] = t >= T || d ? 1.f : 0.f;
+    }
+    float A, D;
+    compose<true>(a, c, A, D);
+    float* pa = pairs + parity * 2 * plane;
+    pa[own * cols + x] = A;
+    pa[plane + own * cols + x] = D;
+    __syncthreads();
+
+    float ret = fold_pairs<true>(pa, plane, cols, chunks, x, own, carry);
+#pragma unroll
+    for (int u = kChunk - 1; u >= 0; --u) {
+      ret = a[u] + c[u] * ret;
+      if (col < B && t0 + u < T) {
+        const float adv = cur.rho[u] * (ret - cur.v[u]);
+        sum += adv * cur.lp[u];
+      }
+    }
+    cur = nxt;
+  }
+
+  store_column_sum(smem + 4 * plane, sum, cols, chunks, x, own, col, B, out);
+}
+
+// The UPGO advantage plane (kernel 11) on the one-thread walk: r_{t+1},
+// V_{t+2} and V_{t+1} carried backwards; adv_t stored for every t.
 __global__ void __launch_bounds__(kThreads)
-upgo_kernel(const float* __restrict__ rhos, const float* __restrict__ lp,
-            const float* __restrict__ reward,
+upgo_kernel(const float* __restrict__ rhos, const float* __restrict__ reward,
             const float* __restrict__ value, float* __restrict__ out, int T,
             int B) {
   const int b = blockIdx.x * kThreads + threadIdx.x;
@@ -315,19 +372,17 @@ upgo_kernel(const float* __restrict__ rhos, const float* __restrict__ lp,
   float v_next = value[(size_t)T * B + b];   // V_{t+1}, starts at V_T
   float v_next2 = 0.f, r_next = 0.f;         // V_{t+2}, r_{t+1}
   float ret = 0.f;
-  float sum = 0.f;
   for (int t0 = T - 1; t0 >= 0; t0 -= kUnroll) {
-    float hv[kUnroll], rv[kUnroll], vv[kUnroll], lv[kUnroll];
+    float hv[kUnroll], rv[kUnroll], vv[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = t0 - u;
-      hv[u] = rv[u] = vv[u] = lv[u] = 0.f;
+      hv[u] = rv[u] = vv[u] = 0.f;
       if (t >= 0) {
         const size_t o = (size_t)t * B + b;
         hv[u] = __ldg(rhos + o);
         rv[u] = __ldg(reward + o);
         vv[u] = __ldg(value + o);
-        if (kEpi == UpgoEpilogue::kLossSum) lv[u] = __ldg(lp + o);
       }
     }
 #pragma unroll
@@ -336,25 +391,13 @@ upgo_kernel(const float* __restrict__ rhos, const float* __restrict__ lp,
       if (t >= 0) {
         const bool d = t < T - 1 && __fadd_rn(r_next, v_next2) >= v_next;
         ret = d ? __fadd_rn(rv[u], ret) : __fadd_rn(rv[u], v_next);
-        const float adv = hv[u] * (ret - vv[u]);
-        if (kEpi == UpgoEpilogue::kAdvantage) out[(size_t)t * B + b] = adv;
-        if (kEpi == UpgoEpilogue::kLossSum) sum += adv * lv[u];
+        out[(size_t)t * B + b] = hv[u] * (ret - vv[u]);
         r_next = rv[u];
         v_next2 = v_next;
         v_next = vv[u];
       }
     }
   }
-  if (kEpi == UpgoEpilogue::kLossSum) out[b] = sum;
-}
-
-template <UpgoEpilogue kEpi>
-int launch_upgo(const float* rhos, const float* lp, const float* reward,
-                const float* value, float* out, int T, int B, void* stream) {
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  upgo_kernel<kEpi><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      rhos, lp, reward, value, out, T, B);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -371,14 +414,14 @@ int gae_f32(const float* value, const float* reward, const float* denom,
                         value, reward, denom, adv, T, B, gamma, gamma_lambda);
 }
 
-// value (T+1, B), reward (T, B) in; the lambda-returns (T, B) out.
+// value (T+1, B), reward (T, B) in; the lambda-returns (T, B) out.  Tiled
+// as gae_f32.
 int lambda_returns_f32(const float* value, const float* reward, float* ret,
                        int T, int B, float gamma, float gamma_lambda,
-                       void* stream) {
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  lambda_returns_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      value, reward, ret, T, B, gamma, gamma_lambda);
-  return (int)cudaGetLastError();
+                       int cols, int chunks, void* stream) {
+  return launch_chunked(td_lambda_chunked_kernel<TdEpilogue::kReturns>, 4, T,
+                        B, cols, chunks, stream, value, reward, ret, T, B,
+                        gamma, gamma_lambda);
 }
 
 // value (T+1, B), reward (T, B) in; parts (1, B) out: sum_t (ret_t - V_t)^2
@@ -405,17 +448,20 @@ int td_lambda_err_f32(const float* value, const float* reward, float* err,
 int upgo_advantages_f32(const float* rhos, const float* reward,
                         const float* value, float* adv, int T, int B,
                         void* stream) {
-  return launch_upgo<UpgoEpilogue::kAdvantage>(rhos, nullptr, reward, value,
-                                               adv, T, B, stream);
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  upgo_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(rhos, reward,
+                                                           value, adv, T, B);
+  return (int)cudaGetLastError();
 }
 
 // rhos, lp, reward (T, B), value (T+1, B) in; parts (1, B) out: sum_t adv_t *
-// lp_t per column.
+// lp_t per column.  Tiled as gae_f32.
 int upgo_loss_f32(const float* rhos, const float* lp, const float* reward,
-                  const float* value, float* parts, int T, int B,
-                  void* stream) {
-  return launch_upgo<UpgoEpilogue::kLossSum>(rhos, lp, reward, value, parts,
-                                             T, B, stream);
+                  const float* value, float* parts, int T, int B, int cols,
+                  int chunks, void* stream) {
+  return launch_chunked(upgo_chunked_kernel<UpgoEpilogue::kLossSum>, 5, T, B,
+                        cols, chunks, stream, rhos, lp, reward, value, parts,
+                        T, B);
 }
 
 }  // extern "C"

@@ -41,6 +41,7 @@ from .rl_scans import (
     gae_launch_shape,
     gae_plain,
     lambda_returns,
+    lambda_returns_launch_shape,
     lambda_returns_plain,
     td_lambda_err,
     td_lambda_err_launch_shape,
@@ -51,6 +52,7 @@ from .rl_scans import (
     upgo_advantages,
     upgo_advantages_plain,
     upgo_loss,
+    upgo_loss_launch_shape,
     upgo_loss_plain,
     vtrace_launch_shape,
     vtrace_losses,

@@ -59,13 +59,14 @@ _SIGNATURES = {
     "vtrace_returns_adv_f32": (_i, [_p] * 5 + [_i] * 2 + [_f] * 5 + [_i] * 2
                                + [_p]),
     "gae_f32": (_i, [_p] * 4 + [_i] * 2 + [_f] * 2 + [_i] * 2 + [_p]),
-    "lambda_returns_f32": (_i, [_p] * 3 + [_i] * 2 + [_f] * 2 + [_p]),
+    "lambda_returns_f32": (_i, [_p] * 3 + [_i] * 2 + [_f] * 2 + [_i] * 2
+                           + [_p]),
     "td_lambda_loss_f32": (_i, [_p] * 3 + [_i] * 2 + [_f] * 2 + [_i] * 2
                            + [_p]),
     "td_lambda_err_f32": (_i, [_p] * 3 + [_i] * 2 + [_f] * 2 + [_i] * 2
                           + [_p]),
     "upgo_advantages_f32": (_i, [_p] * 4 + [_i] * 2 + [_p]),
-    "upgo_loss_f32": (_i, [_p] * 5 + [_i] * 2 + [_p]),
+    "upgo_loss_f32": (_i, [_p] * 5 + [_i] * 4 + [_p]),
     "linear_scan_f32": (_i, [_p] * 4 + [_i] * 5 + [_p]),
     "dihpc_error_string": (ctypes.c_char_p, [_i]),
 }

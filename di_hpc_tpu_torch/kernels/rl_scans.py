@@ -23,10 +23,9 @@ weights, the rewards and value[T].  `vtrace_returns_adv` has the zero
 gradient of rl_scans.py:507-511.
 
 And of its row-constant-coefficient part (csrc/rl_scans.cu: GAE and the
-TD(lambda) loss and error chunked over T like V-trace, their launches
-`gae_launch_shape(T, B)`, `td_lambda_launch_shape(T, B)` and
-`td_lambda_err_launch_shape(T, B)`; the returns plane one thread per column
-walking time backwards):
+TD(lambda) returns, loss and error chunked over T like V-trace, their
+launches `gae_launch_shape(T, B)`, `lambda_returns_launch_shape(T, B)`,
+`td_lambda_launch_shape(T, B)` and `td_lambda_err_launch_shape(T, B)`):
 
   - `gae` ~ `gae_fused_pallas`: value (T+1, B), reward (T, B) -> advantage
     (T, B), dividing by `ops.scan.gae_denominators` as the JAX wrapper does.
@@ -41,13 +40,15 @@ walking time backwards):
 `gae` and `lambda_returns` have the zero gradient of rl_scans.py:113-116 and
 :179-182.
 
-And of its UPGO part (the same walk over a full plane of binary lambdas
-derived in-kernel, csrc/rl_scans.cu):
+And of its UPGO part (a full plane of binary lambdas derived in-kernel,
+csrc/rl_scans.cu):
 
   - `upgo_advantages` ~ `upgo_advantages_pallas`: rhos * (upgo_returns -
-    V[:-1]) (T, B), with the zero gradient of rl_scans.py:360-363.
+    V[:-1]) (T, B), one thread per column walking time backwards, with the
+    zero gradient of rl_scans.py:360-363.
   - `upgo_loss` ~ `upgo_loss_pallas`: -sum(adv * lp) / TB from per-column
-    partial sums, with the recompute backward of rl_scans.py:452-465:
+    partial sums, chunked over T (`upgo_loss_launch_shape(T, B)`), with the
+    recompute backward of rl_scans.py:452-465:
     `upgo_advantages` gives adv, d lp = -ct*adv/TB, and rhos, reward and
     value get zeros.
 """
@@ -61,6 +62,7 @@ from . import _build
 __all__ = ["vtrace_losses", "vtrace_losses_plain", "vtrace_returns_adv",
            "vtrace_returns_adv_plain", "vtrace_launch_shape",
            "td_lambda_launch_shape", "td_lambda_err_launch_shape",
+           "lambda_returns_launch_shape", "upgo_loss_launch_shape",
            "gae_launch_shape", "chunked_launch_shape", "gae",
            "gae_plain", "lambda_returns", "lambda_returns_plain",
            "td_lambda_loss", "td_lambda_loss_plain", "td_lambda_err",
@@ -184,6 +186,22 @@ def td_lambda_err_launch_shape(T: int, B: int, sms: int = 132, cols=None,
     kernel's walk with another epilogue, whose shared memory holds only the
     two buffers of the chunks' (A, D) pairs."""
     return chunked_launch_shape("td_lambda_err", T, B, sms, cols, chunks, 4)
+
+
+def lambda_returns_launch_shape(T: int, B: int, sms: int = 132, cols=None,
+                                chunks=None) -> dict:
+    """The lambda-returns kernel's launch (chunked_launch_shape): the
+    error kernel's walk storing the returns, with the same two buffers of
+    the chunks' (A, D) pairs in shared memory."""
+    return chunked_launch_shape("lambda_returns", T, B, sms, cols, chunks, 4)
+
+
+def upgo_loss_launch_shape(T: int, B: int, sms: int = 132, cols=None,
+                           chunks=None) -> dict:
+    """The UPGO loss kernel's launch (chunked_launch_shape); the CTA walks
+    its super-tiles from the last.  The dynamic shared memory holds two
+    buffers of the chunks' (A, D) pairs and the chunk partials."""
+    return chunked_launch_shape("upgo_loss", T, B, sms, cols, chunks, 5)
 
 
 def gae_launch_shape(T: int, B: int, sms: int = 132, cols=None,
@@ -436,10 +454,18 @@ def _gae_cuda(value, reward, gamma, lambda_, cols=None, chunks=None):
 def _lambda_returns_forward(value, reward, gamma, lambda_):
     if _build.on_cpu(value, reward):
         return lambda_returns_plain(value, reward, gamma, lambda_)
+    return _lambda_returns_cuda(value, reward, gamma, lambda_)
+
+
+def _lambda_returns_cuda(value, reward, gamma, lambda_, cols=None,
+                         chunks=None):
+    """The returns kernel's launch; `cols` and `chunks` override
+    lambda_returns_launch_shape's choice, to measure the candidates."""
     value, reward = _check_pair("lambda_returns", value, reward)
+    tiling = _tiling(lambda_returns_launch_shape, reward, cols, chunks)
     ret = torch.empty_like(reward)
     _launch("lambda_returns", "lambda_returns_f32", (value, reward, ret),
-            gamma, lambda_)
+            gamma, lambda_, *tiling)
     lambda_returns.launches += 1
     return ret
 
@@ -616,16 +642,23 @@ upgo_advantages.launches = 0
 def _upgo_loss_forward(rhos, lp, reward, value):
     if _build.on_cpu(rhos, lp, reward, value):
         return upgo_loss_plain(rhos, lp, reward, value)
-    name = "upgo_loss"
+    return _upgo_loss_cuda(rhos, lp, reward, value)
+
+
+def _upgo_loss_cuda(rhos, lp, reward, value, cols=None, chunks=None):
+    """The UPGO loss kernel's launch; `cols` and `chunks` override
+    upgo_loss_launch_shape's choice, to measure the candidates."""
     (rhos, lp, reward, value), T, B = _check_upgo(
-        name, {"rhos": rhos, "lp": lp, "reward": reward, "value": value})
+        "upgo_loss", {"rhos": rhos, "lp": lp, "reward": reward,
+                      "value": value})
+    tiling = _tiling(upgo_loss_launch_shape, reward, cols, chunks)
     parts = torch.empty((1, B), dtype=torch.float32, device=reward.device)
     with torch.cuda.device(reward.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = _build.library().cdll.upgo_loss_f32(
             rhos.data_ptr(), lp.data_ptr(), reward.data_ptr(),
-            value.data_ptr(), parts.data_ptr(), T, B, stream)
-    _build.check_status(name, status)
+            value.data_ptr(), parts.data_ptr(), T, B, *tiling, stream)
+    _build.check_status("upgo_loss", status)
     upgo_loss.launches += 1
     # One partial per column, summed by torch.sum in a fixed order: no float
     # atomics, so repeated runs are bitwise equal.

@@ -9,8 +9,9 @@ AlphaStar trainer on the card against the CPU; the bf16 instantiations of the
 three LSTM kernels against their plain bf16 versions, the bf16 train step on
 the card against the CPU, and strided (T, B) inputs through the RL ops;
 the chunked linear recurrence (kernel 6), TD(lambda) loss (kernel 9), GAE
-(kernel 7) and TD(lambda) error plane (kernel 10) against their plain
-versions at ragged shapes, boundaries, (gamma, lambda) and tilings; and
+(kernel 7), TD(lambda) error plane (kernel 10), lambda-returns plane
+(kernel 8) and UPGO loss (kernel 12) against their plain versions at ragged
+shapes, boundaries, (gamma, lambda), exact ties and tilings; and
 `network.lstm_fused` with a gradient where the kernels cannot take the
 layer (H % 4 != 0, widths past each shared-memory plan, float16), against
 the same call on the CPU, with the route each layer took.
@@ -1345,6 +1346,106 @@ def test_gae_and_td_lambda_err_refuse_a_tiling_past_512_threads(cuda):
     torch.cuda.synchronize()
     assert statuses == [1, 1]
     assert torch.equal(out, torch.full_like(reward, 7.0))
+
+
+# ------------------------------------ chunked scans: kernels 8, 12 ----
+
+@pytest.mark.parametrize("B", CHUNKED_B)
+@pytest.mark.parametrize("T", CHUNKED_T)
+def test_lambda_returns_chunked_kernel_matches_plain(cuda, T, B):
+    """The returns plane at TD_CASES against the plain version (JAX's form
+    of the last step, one rounding apart), bitwise equal on a second run."""
+    value, reward = _scan_inputs(71, T, B, cuda)
+    for gamma, lambda_ in TD_CASES:
+        got = _twice(kernels.lambda_returns, value, reward, gamma, lambda_)
+        want = kernels.lambda_returns_plain(value, reward, gamma, lambda_)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                   msg=f"gamma={gamma} lambda={lambda_}")
+
+
+@pytest.mark.parametrize("B", CHUNKED_B)
+@pytest.mark.parametrize("T", CHUNKED_T)
+def test_upgo_loss_chunked_kernel_matches_plain(cuda, T, B):
+    """The loss against the plain version, bitwise equal on a second run:
+    steps past T compose to the identity and d_{T-1} = 0 cuts the carry, so
+    a T that is not a multiple of the super-tile adds nothing from above."""
+    rhos, lp, reward, value = _full_plane_inputs(72, T, B, cuda)[2:]
+    got = _twice(kernels.upgo_loss, rhos, lp, reward, value)
+    torch.testing.assert_close(
+        got, kernels.upgo_loss_plain(rhos, lp, reward, value), rtol=RTOL,
+        atol=ATOL)
+
+
+@pytest.mark.parametrize("T,B,tiling", [(16, 8, (8, 2, 1)),
+                                        (128, 512, (8, 16, 64))])
+def test_upgo_loss_chunked_kernel_at_its_callers_shapes(cuda, T, B, tiling):
+    """The AlphaStar step's T=16, B=8 (8 columns x 2 chunks, one CTA) and
+    ops.upgo_loss's T=128, B=512 (8 x 16, 64 CTAs) on the H100's 132 SMs."""
+    shape = kernels.upgo_loss_launch_shape(T, B, kernels.rl_scans._sms(cuda))
+    assert (shape["cols"], shape["chunks"], shape["grid"]) == tiling
+    rhos, lp, reward, value = _full_plane_inputs(73, T, B, cuda)[2:]
+    got = _twice(kernels.upgo_loss, rhos, lp, reward, value)
+    torch.testing.assert_close(
+        got, kernels.upgo_loss_plain(rhos, lp, reward, value), rtol=RTOL,
+        atol=ATOL)
+
+
+@pytest.mark.parametrize("T,B", [(40, 70), (1000, 33), (16, 8), (128, 512)])
+def test_upgo_loss_breaks_ties_as_the_plain_version(cuda, T, B):
+    """Integer-valued inputs make exact ties r_{t+1} + V_{t+2} = V_{t+1} and
+    exact sums, whatever their order: the chunked kernel's loss equals the
+    plain version's bit for bit."""
+    rng = np.random.default_rng(74)
+    reward, value, lp = (torch.from_numpy(rng.integers(-2, 3, s).astype(
+        np.float32)).to(cuda) for s in ((T, B), (T + 1, B), (T, B)))
+    rhos = torch.ones((T, B), device=cuda)
+    got = kernels.upgo_loss(rhos, lp, reward, value)
+    assert torch.equal(got, kernels.upgo_loss_plain(rhos, lp, reward, value))
+
+
+@pytest.mark.parametrize("name", ["lambda_returns", "upgo_loss"])
+def test_lambda_returns_and_upgo_loss_chunked_kernels_take_every_tiling(
+        cuda, name):
+    T, B = 1000, 70
+    value, reward = _scan_inputs(75, T, B, cuda)
+    rhos, lp = _full_plane_inputs(76, T, B, cuda)[2:4]
+    args = ((value, reward, 0.9, 0.8) if name == "lambda_returns"
+            else (rhos, lp, reward, value))
+    want = getattr(kernels, name + "_plain")(*args)
+    launch = getattr(kernels.rl_scans, f"_{name}_cuda")
+    for cols, chunks in CHUNKED_TILINGS:
+        got = launch(*args, cols=cols, chunks=chunks)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                   msg=f"{cols}x{chunks}")
+
+
+def test_lambda_returns_and_upgo_loss_refuse_a_tiling_past_512_threads(
+        cuda):
+    """64 x 16 threads: the wrappers raise before a launch, and the C entry
+    points return cudaErrorInvalidValue (1) without launching."""
+    T, B = 20, 40
+    value, reward = _scan_inputs(77, T, B, cuda)
+    rhos, lp = _full_plane_inputs(78, T, B, cuda)[2:4]
+    with pytest.raises(ValueError, match="exceed 512 threads"):
+        kernels.rl_scans._lambda_returns_cuda(value, reward, 0.9, 0.8,
+                                              cols=64, chunks=16)
+    with pytest.raises(ValueError, match="exceed 512 threads"):
+        kernels.rl_scans._upgo_loss_cuda(rhos, lp, reward, value, cols=64,
+                                         chunks=16)
+    out = torch.full_like(reward, 7.0)
+    parts = torch.full((1, B), 7.0, device=cuda)
+    lib = _build.library().cdll
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = lambda *ts: [t.data_ptr() for t in ts]
+    statuses = [
+        lib.lambda_returns_f32(*ptr(value, reward, out), T, B, 0.9, 0.72, 64,
+                               16, stream),
+        lib.upgo_loss_f32(*ptr(rhos, lp, reward, value, parts), T, B, 64, 16,
+                          stream)]
+    torch.cuda.synchronize()
+    assert statuses == [1, 1]
+    assert torch.equal(out, torch.full_like(reward, 7.0))
+    assert torch.equal(parts, torch.full((1, B), 7.0, device=cuda))
 
 
 # ------------------------------------------------ lstm_fused routing ----

@@ -161,12 +161,14 @@ def test_vtrace_launch_shape_covers_the_planes(T, B):
 @pytest.mark.parametrize("shape_fn", ["linear_scan_launch_shape",
                                       "td_lambda_launch_shape",
                                       "td_lambda_err_launch_shape",
-                                      "gae_launch_shape"])
+                                      "gae_launch_shape",
+                                      "lambda_returns_launch_shape",
+                                      "upgo_loss_launch_shape"])
 def test_chunked_scan_launch_shapes_cover_the_planes(shape_fn, T, B):
-    """Kernels 6, 9, 10 and 7 take the V-trace kernels' tiling: the tiles
-    cover T and B, a CTA holds at most 512 threads, its shared memory (two
-    buffers of (A, D) pairs, and the loss's chunk partials) fits the H100's
-    227 KB, and the cols and chunks overrides are taken as given."""
+    """Kernels 6, 9, 10, 7, 8 and 12 take the V-trace kernels' tiling: the
+    tiles cover T and B, a CTA holds at most 512 threads, its shared memory
+    (two buffers of (A, D) pairs, and the losses' chunk partials) fits the
+    H100's 227 KB, and the cols and chunks overrides are taken as given."""
     fn = getattr(kernels, shape_fn)
     shape = fn(T, B)
     assert shape == {**kernels.vtrace_launch_shape(T, B),
@@ -177,7 +179,8 @@ def test_chunked_scan_launch_shapes_cover_the_planes(shape_fn, T, B):
     assert steps == shape["chunks"] * 8 and (tiles - 1) * steps < T <= \
         tiles * steps
     assert shape["threads"] == shape["cols"] * shape["chunks"] <= 512
-    floats = 5 if shape_fn == "td_lambda_launch_shape" else 4
+    floats = 5 if shape_fn in ("td_lambda_launch_shape",
+                               "upgo_loss_launch_shape") else 4
     assert shape["smem_bytes"] == floats * 4 * shape["threads"] <= 232448
     assert fn(T, B, 132, 16, 16)["grid"] == -(-B // 16)
     assert fn(T, B, 132, 5, 7)["super_tile_steps"] == 56
@@ -191,6 +194,18 @@ def test_gae_launch_shape_at_the_ppo_trainers_shape():
     shape = kernels.gae_launch_shape(16, 256)
     assert (shape["cols"], shape["chunks"], shape["grid"]) == (8, 2, 32)
     assert (shape["threads"], shape["super_tiles"]) == (16, 1)
+
+
+@pytest.mark.parametrize("T,B,want", [(16, 8, (8, 2, 1, 16, 1)),
+                                      (128, 512, (8, 16, 64, 128, 1))])
+def test_upgo_loss_launch_shape_at_its_callers_shapes(T, B, want):
+    """The AlphaStar step's T=16, B=8 takes 8 columns x 2 chunks in one CTA;
+    ops.upgo_loss's T=128, B=512 takes 8 x 16 in 64 CTAs; each CTA walks
+    one super-tile.  Narrow tiles, so that the grid fills more SMs."""
+    shape = kernels.upgo_loss_launch_shape(T, B)
+    assert (shape["cols"], shape["chunks"], shape["grid"], shape["threads"],
+            shape["super_tiles"]) == want
+    assert shape["smem_bytes"] == 5 * 4 * shape["threads"]
 
 
 def test_non_cpu_inputs_go_to_the_kernel_checks_not_the_plain_version():
