@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # no arguments; needs one CUDA card
     python3 chip_smoke.py --digests    # only the LSTM and scan kernels'
                                        # output digests and ptxas lines
-    python3 chip_smoke.py --profile    # only phase 9 (profile)
+    python3 chip_smoke.py --profile    # only phase 10 (profile)
 
 Phases, each printing one JSON line (`{"phase": ...}`):
 
@@ -49,10 +49,11 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 td_lambda_loss, td_lambda_err, linear_scan both ways with a
                 zero, a scalar and a (B,) boundary, upgo_advantages,
                 upgo_loss) run at T=1024, B=4096, at a ragged B and at T=1;
-                the four row-constant ones and upgo_loss must be bitwise
-                repeatable.  The six chunked scan kernels (linear_scan,
+                the four row-constant ones and both UPGO kernels must be
+                bitwise repeatable.  All seven scan kernels (linear_scan,
                 td_lambda_loss, td_lambda_err, gae, lambda_returns,
-                upgo_loss) print their launch (columns and chunks per CTA,
+                upgo_loss, upgo_advantages) are chunked and print their
+                launch (columns and chunks per CTA,
                 super-tiles, ptxas' registers and spills), time the chosen
                 tiling against 16x16 and 32x8 in turns at T=1024 (upgo_loss
                 also without its wrapper's work), and are held against their
@@ -61,11 +62,12 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 with a zero, a scalar and a large (B,) boundary; the loss,
                 the error and the returns planes at gamma*lambda = 0,
                 lambda = 1 and gamma = 1, GAE at gamma*lambda = 0, lambda =
-                1 and gamma = lambda = 1, the UPGO loss on normal inputs and
-                on integer-valued ones, where it must equal the plain
-                version; bitwise repeatable), GAE also at the PPO trainer's
-                T=16, B=256, and GAE, the error and returns planes and the
-                UPGO loss at every tiling of the card tests.
+                1 and gamma = lambda = 1, the UPGO loss and advantage plane
+                on normal inputs and on integer-valued ones, where they must
+                equal the plain version; bitwise repeatable), GAE also at
+                the PPO trainer's T=16, B=256, and GAE, the error and
+                returns planes and both UPGO kernels at every tiling of the
+                card tests.
                 The bf16 instantiations of the three LSTM kernels run at the
                 f32 rows' shapes (the forward's rows but H=510, the
                 backward's rows),
@@ -141,14 +143,29 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 against the same calls on the CPU; then ms per UPGO loss
                 forward + backward, per scatter add + gradient and per
                 AlphaStar train step.
-  9. profile -- torch.profiler over one more run of each of the timed calls
+  9. nstep   -- the batch-bound TD family and the R2D2 learner, counts set
+                to 0 just before it and read just after: forward and the
+                gradient in q (or dist) of `ops.q_nstep_td_error` and
+                `ops.q_nstep_td_error_with_rescale` (B=64, N=64, nstep 5),
+                `ops.dist_nstep_td_error` (B=128, N=128, 51 atoms, nstep
+                10; bitwise repeatable), `ops.qrdqn_nstep_td_error` (tau=64,
+                B=4096, N=64) and `ops.iqn_nstep_td_error` (tau=33,
+                tau'=34, B=64, N=8, nstep 10, kappa 0.9), then 3 steps of
+                the train step of examples/r2d2_training.py (its
+                configuration: S=20, burn-in 4, B=32, obs 16, a 128-wide
+                LN-LSTM, 8 actions, nstep 3; Adam(lr=1e-3); synthetic
+                replay samples), whose LSTM takes kernel 1 and kernel 5
+                (V1) on every layer.  Every output, gradient, step's loss,
+                priorities and updated parameters against the same calls
+                on the CPU; then ms per op call and per R2D2 step.
+ 10. profile -- torch.profiler over one more run of each of the timed calls
                 (forward, serving loop, V-trace, train step, the three
                 on-policy calls, the UPGO loss, the AlphaStar train step and
                 the bf16 train step), of the f32 and bf16 train steps at
                 B=32, of the weighted `ops.td_lambda_error` at T=1024,
-                B=4096 and of phase upgo's four scan entry points: device
-                busy time, idle share of the window and the top kernels by
-                device time.
+                B=4096, of phase upgo's four scan entry points and of phase
+                nstep's five TD ops and R2D2 step: device busy time, idle
+                share of the window and the top kernels by device time.
 
 Then one `{"kernels": [...]}` line, the nvidia-smi line, and, last, the
 contract line `{"ok": true, "device": {...}}`.  With `--digests` it prints
@@ -157,7 +174,7 @@ backward's inputs from the plain forward) and their ptxas lines, and of the
 scan kernels' (2, 3, 6-12) outputs at T=1024, B=4096 and at the ragged
 T=1000, B=4100: run in two checkouts, they show whether a change left those
 kernels bitwise the same.
-With `--profile` it prints only phase 9's line, which runs in an older
+With `--profile` it prints only phase 10's line, which runs in an older
 checkout too.  Any
 failure prints its phase
 with `"ok": false` and exits 1; no card (or no port beside this script)
@@ -617,25 +634,26 @@ def chunked_scan_sweep(dev) -> dict:
     the linear recurrence both ways with a zero, a scalar and a large (B,)
     boundary (steps past T must be the identity, or the reverse walk loses
     the boundary), the TD(lambda) loss, error and returns at TD_CASES, GAE
-    at GAE_CASES and the UPGO loss on normal and on integer-valued inputs
-    (exact ties and sums: equal to the plain version), each bitwise
-    repeatable; GAE also at the PPO trainer's (T, B), and GAE, the error
-    and returns planes and the UPGO loss at every CHUNKED_TILINGS tiling.
-    Returns the largest errors."""
+    at GAE_CASES and the UPGO advantage plane and loss on normal and on
+    integer-valued inputs (exact ties and sums: equal to the plain
+    version), each bitwise repeatable; GAE also at the PPO trainer's (T,
+    B), and GAE, the error and returns planes and both UPGO kernels at
+    every CHUNKED_TILINGS tiling.  Returns the largest errors."""
     rng = np.random.default_rng(SEED + 18)
     # UPGO's inputs from a seed of their own, so that the other kernels'
     # inputs stay those of the sweep before it took UPGO.
     upgo_rng = np.random.default_rng(SEED + 21)
     worst = {"linear_scan": 0.0, "td_lambda_loss": 0.0, "td_lambda_err": 0.0,
-             "gae": 0.0, "lambda_returns": 0.0, "upgo_loss": 0.0}
+             "gae": 0.0, "lambda_returns": 0.0, "upgo_loss": 0.0,
+             "upgo_advantages": 0.0}
 
     def check(name, label, run, want, exact=False):
         got = run()
         if not torch.equal(got, run()):
             raise AssertionError(f"{name} {label}: repeated runs differ")
         if exact and not torch.equal(got, want):
-            raise AssertionError(f"{name} {label}: {float(got)} is not the "
-                                 f"plain version's {float(want)}")
+            raise AssertionError(f"{name} {label}: not the plain version's "
+                                 f"values")
         err = compare(f"{name} {label}", [got], [want])["max_abs_err"]
         worst[name] = max(worst[name], err)
 
@@ -683,6 +701,11 @@ def chunked_scan_sweep(dev) -> dict:
                 check("upgo_loss", f"T={T} B={B} integer={integer}",
                       lambda: kernels.upgo_loss(*args),
                       kernels.upgo_loss_plain(*args), exact=integer)
+                adv_args = (args[0], *args[2:])
+                check("upgo_advantages", f"T={T} B={B} integer={integer}",
+                      lambda: kernels.upgo_advantages(*adv_args),
+                      kernels.upgo_advantages_plain(*adv_args),
+                      exact=integer)
             shapes += 1
     T, B = PPO_CFG["T"], PPO_CFG["B"]
     scan_cases(T, B, f(T + 1, B), f(T, B), ("gae",))
@@ -690,7 +713,8 @@ def chunked_scan_sweep(dev) -> dict:
     value, reward = f(T + 1, B), f(T, B)
     tiled = [(name, (value, reward, *SCAN_ARGS[name]))
              for name in ("gae", "td_lambda_err", "lambda_returns")]
-    tiled.append(("upgo_loss", upgo_inputs(T, B, False)))
+    args = upgo_inputs(T, B, False)
+    tiled += [("upgo_loss", args), ("upgo_advantages", (args[0], *args[2:]))]
     for name, args in tiled:
         launch = getattr(kernels.rl_scans, f"_{name}_cuda")
         want = getattr(kernels, name + "_plain")(*args)
@@ -701,7 +725,7 @@ def chunked_scan_sweep(dev) -> dict:
             "td_cases": TD_CASES, "gae_cases": GAE_CASES,
             "gae_ppo_shape": (PPO_CFG["T"], PPO_CFG["B"]),
             "tilings": CHUNKED_TILINGS, "tilings_shape": TILINGS_SHAPE,
-            "bitwise_repeatable": True, "upgo_loss_integer_inputs_exact": True,
+            "bitwise_repeatable": True, "upgo_integer_inputs_exact": True,
             "max_abs_err": worst}
 
 
@@ -720,17 +744,25 @@ def upgo_bounds(T, B):
             "upgo_loss": (4 * (4 * T * B + 2 * B), 7 * T * B)}
 
 
-# The chunked UPGO loss kernel's instantiation, for chunked_launch_info.
+# The chunked UPGO kernels' instantiations, for chunked_launch_info.
 UPGO_LOSS_INSTANCES = {"loss": ("upgo_chunked_kernel", "UpgoEpilogueE0")}
+UPGO_ADV_INSTANCES = {"advantages": ("upgo_chunked_kernel",
+                                     "UpgoEpilogueE1")}
+# name -> (launch-shape function, instantiations, the wrapper's launch).
+UPGO_CHUNKED = {
+    "upgo_advantages": ("upgo_advantages_launch_shape", UPGO_ADV_INSTANCES,
+                        "_upgo_advantages_cuda"),
+    "upgo_loss": ("upgo_loss_launch_shape", UPGO_LOSS_INSTANCES,
+                  "_upgo_loss_cuda")}
 
 
 def full_plane_kernel_rows(rng, dev) -> dict:
     """Kernels 6, 11 and 12 against their plain versions at T=1024, B=4096
     (timed, with bounds), at a ragged B and at T=1; the linear recurrence in
-    both directions with a zero, a scalar and a (B,) boundary; the chunked
-    ones (6, 12) with their launch (tiling, ptxas), their T=1024 rows also
-    timing the chosen tiling against SCAN_OTHER_TILINGS, and kernel 12's
-    the kernel alone (upgo_loss_kernel_alone_ms); upgo_loss must be bitwise
+    both directions with a zero, a scalar and a (B,) boundary; each with
+    its launch (tiling, ptxas), its T=1024 rows also timing the chosen
+    tiling against SCAN_OTHER_TILINGS, and kernel 12's the kernel alone
+    (upgo_loss_kernel_alone_ms); both UPGO kernels must be bitwise
     repeatable."""
     from di_hpc_tpu_torch.kernels.linear_scan import _linear_scan
 
@@ -780,24 +812,21 @@ def full_plane_kernel_rows(rng, dev) -> dict:
             got = wrapper(*args)
             again = wrapper(*args)
             torch.cuda.synchronize()
-            row = {"shape": f"T={T},B={B}"}
-            if name == "upgo_loss":
-                if not torch.equal(got, again):
-                    raise AssertionError("upgo_loss: repeated runs differ")
-                row["bitwise_repeatable"] = True
-            row.update(compare(f"{name} T={T},B={B}", [got], [plain(*args)]))
-            if name == "upgo_loss":
-                row["launch"] = chunked_launch_info(
-                    kernels.upgo_loss_launch_shape, T, B, UPGO_LOSS_INSTANCES)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: repeated runs differ")
+            shape_fn, instances, launch = UPGO_CHUNKED[name]
+            shape_fn = getattr(kernels, shape_fn)
+            launch = getattr(kernels.rl_scans, launch)
+            row = {"shape": f"T={T},B={B}", "bitwise_repeatable": True,
+                   **compare(f"{name} T={T},B={B}", [got], [plain(*args)]),
+                   "launch": chunked_launch_info(shape_fn, T, B, instances)}
             if T == 1024:
                 row.update(kernel_ms(lambda: wrapper(*args), per_rep=10))
                 row["plain_ms"] = cuda_ms(lambda: plain(*args), 3, warmup=1)
                 row["bound_ms"], row["bound_by"] = bound_ms(*bounds[name])
+                row["candidates"] = chunked_candidates(
+                    lambda **tiling: launch(*args, **tiling), shape_fn, T, B)
                 if name == "upgo_loss":
-                    row["candidates"] = chunked_candidates(
-                        lambda **tiling: kernels.rl_scans._upgo_loss_cuda(
-                            *args, **tiling),
-                        kernels.upgo_loss_launch_shape, T, B)
                     row["kernel_alone_ms"] = upgo_loss_kernel_alone_ms(*args)
             rows[f"{name} T={T}"] = row
     return rows
@@ -2167,6 +2196,320 @@ def upgo_timed_calls(x, as_np, batches_np, dev):
 
 # ------------------------------------------------------------ phase 9 ----
 
+# The batch-bound TD family at the JAX bench's shapes: q_nstep and its
+# rescaled form at bench.py:1069-1089, C51 at bench.py:505-547, QR-DQN at
+# the replay-learner scale of bench_results/profile_qrdqn_iqn_scale_r5.py
+# (its gamma and nstep, :131-135), IQN at bench.py:1095-1117.
+NS_Q = {"B": 64, "N": 64, "nstep": 5, "gamma": 0.95}
+NS_C51 = {"B": 128, "N": 128, "n_atom": 51, "nstep": 10, "gamma": 0.95,
+          "v_min": -10.0, "v_max": 10.0}
+NS_QR = {"tau": 64, "B": 4096, "N": 64, "nstep": 3, "gamma": 0.99}
+NS_IQN = {"tau": 33, "tau_prime": 34, "B": 64, "N": 8, "nstep": 10,
+          "gamma": 0.95, "kappa": 0.9}
+# The train step of examples/r2d2_training.py with its own configuration
+# (main's defaults, :56-59), Adam(lr=1e-3), the target net frozen at the
+# first step's parameters (target_update_every=10), synthetic replay
+# samples as the example draws them (:68-78).
+R2D2_CFG = {"S": 20, "burn_in": 4, "B": 32, "obs_dim": 16, "hidden": 128,
+            "actions": 8, "nstep": 3, "layers": 1, "gamma": 0.99}
+R2D2_LR, R2D2_STEPS = 1e-3, 3
+NSTEP_KERNELS = ("lstm_layer_fused", "lstm_layer_bwd_v1")
+
+
+def nstep_arrays(rng):
+    """numpy-made inputs of the five TD ops (NS_* shapes): Gaussian q
+    tables, softmax distributions for C51, uniform actions, Gaussian
+    rewards, dones with probability 0.1, the QR-DQN quantile midpoints and
+    uniform IQN replay quantiles."""
+    f = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    ints = lambda n, b: rng.integers(0, n, (b,))
+    done = lambda b: rng.uniform(0, 1, (b,)) > 0.9
+
+    def softmax(x):
+        e = np.exp(x - x.max(-1, keepdims=True))
+        return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+    q, c, qr, iq = NS_Q, NS_C51, NS_QR, NS_IQN
+    return {
+        "q": {"q": f(q["B"], q["N"]), "next_n_q": f(q["B"], q["N"]),
+              "action": ints(q["N"], q["B"]),
+              "next_n_action": ints(q["N"], q["B"]),
+              "reward": f(q["nstep"], q["B"]), "done": done(q["B"])},
+        "c51": {"dist": softmax(f(c["B"], c["N"], c["n_atom"])),
+                "next_n_dist": softmax(f(c["B"], c["N"], c["n_atom"])),
+                "act": ints(c["N"], c["B"]), "next_n_act": ints(c["N"], c["B"]),
+                "reward": f(c["nstep"], c["B"]), "done": done(c["B"])},
+        "qrdqn": {"q": f(qr["B"], qr["N"], qr["tau"]),
+                  "next_n_q": f(qr["B"], qr["N"], qr["tau"]),
+                  "action": ints(qr["N"], qr["B"]),
+                  "next_n_action": ints(qr["N"], qr["B"]),
+                  "reward": f(qr["nstep"], qr["B"]), "done": done(qr["B"]),
+                  "tau": ((np.arange(qr["tau"]) + 0.5) / qr["tau"]).astype(
+                      np.float32)},
+        "iqn": {"q": f(iq["tau"], iq["B"], iq["N"]),
+                "next_n_q": f(iq["tau_prime"], iq["B"], iq["N"]),
+                "action": ints(iq["N"], iq["B"]),
+                "next_n_action": ints(iq["N"], iq["B"]),
+                "reward": f(iq["nstep"], iq["B"]), "done": done(iq["B"]),
+                "replay_quantiles": rng.uniform(
+                    0, 1, (iq["tau"], iq["B"])).astype(np.float32)}}
+
+
+def nstep_op_calls(x) -> dict:
+    """The five TD ops, each a callable that runs the op's forward and the
+    backward of its loss into its q (or dist) and returns (loss, per-sample
+    errors, gradient)."""
+    def fwd_bwd(op, tuple_cls, inputs, grad_of, *args, **kwargs):
+        def run():
+            leaf = inputs[grad_of].detach().clone().requires_grad_(True)
+            data = tuple_cls(**{**inputs, grad_of: leaf, "weight": None})
+            loss, per = op(data, *args, **kwargs)
+            loss.backward()
+            return loss.detach(), per.detach(), leaf.grad
+        return run
+
+    q, c, qr, iq = NS_Q, NS_C51, NS_QR, NS_IQN
+    return {
+        "q_nstep_td_error": fwd_bwd(
+            ops.q_nstep_td_error, ops.q_nstep_td_data, x["q"], "q",
+            q["gamma"], q["nstep"]),
+        "q_nstep_td_error_with_rescale": fwd_bwd(
+            ops.q_nstep_td_error_with_rescale, ops.q_nstep_td_data, x["q"],
+            "q", q["gamma"], q["nstep"]),
+        "dist_nstep_td_error": fwd_bwd(
+            ops.dist_nstep_td_error, ops.dist_nstep_td_data, x["c51"], "dist",
+            c["gamma"], c["v_min"], c["v_max"], c["n_atom"], c["nstep"]),
+        "qrdqn_nstep_td_error": fwd_bwd(
+            ops.qrdqn_nstep_td_error, ops.qrdqn_nstep_td_data, x["qrdqn"],
+            "q", qr["gamma"], qr["nstep"]),
+        "iqn_nstep_td_error": fwd_bwd(
+            ops.iqn_nstep_td_error, ops.iqn_nstep_td_data, x["iqn"], "q",
+            iq["gamma"], iq["nstep"], iq["kappa"])}
+
+
+def r2d2_arrays(rng, obs_dim, hidden, actions, layers, **_):
+    """The example's init_params (:41-53) at its init scales, as numpy
+    arrays: normal / sqrt(fan_in) embedding and Q head with zero biases, a
+    uniform(-g, g) LN-LSTM with LN at identity."""
+    n = lambda fan, *s: (rng.standard_normal(s) / np.sqrt(fan)
+                         ).astype(np.float32)
+    g = 1.0 / np.sqrt(hidden)
+    u = lambda *s: rng.uniform(-g, g, s).astype(np.float32)
+    ln = lambda v: np.full((layers, 4 * hidden), v, np.float32)
+    lstm = origin.LSTMParams(
+        tuple(u(hidden, 4 * hidden) for _ in range(layers)),
+        tuple(u(hidden, 4 * hidden) for _ in range(layers)),
+        u(layers, 4 * hidden), ln(1.0), ln(0.0), ln(1.0), ln(0.0))
+    return models.R2D2Arrays(n(obs_dim, obs_dim, hidden),
+                             np.zeros(hidden, np.float32), lstm,
+                             n(hidden, hidden, actions),
+                             np.zeros(actions, np.float32))
+
+
+def r2d2_batches(rng, steps, S, B, obs_dim, hidden, actions, layers, **_):
+    """Synthetic replay samples, one per step, as the example's train_step
+    draws them (:68-78): obs (S+1, B, obs_dim), actions, rewards and dones
+    (S, B), the stored LSTM state and unit importance weights."""
+    f = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    return [{"obs": f(S + 1, B, obs_dim),
+             "act": rng.integers(0, actions, (S, B)),
+             "reward": 0.1 * f(S, B),
+             "done": rng.uniform(0, 1, (S, B)) > 0.97,
+             "stored_h": 0.1 * f(layers, B, hidden),
+             "stored_c": 0.1 * f(layers, B, hidden),
+             "weight": np.ones(B, np.float32)} for _ in range(steps)]
+
+
+def r2d2_q_values(p, obs, state):
+    """The example's q_values (:56-60): obs (S, B, obs_dim), state ((L, B,
+    H), (L, B, H)) -> (q (S, B, A), state)."""
+    x = torch.tanh(obs @ p.embed_w + p.embed_b)
+    y, next_state = network.lstm_fused(p.lstm.params(), x, state, "LN")
+    return y @ p.q_w + p.q_b, next_state
+
+
+def r2d2_targets(p, target_p, x, burn_in, **_):
+    """Without gradient (:80-91): both nets burn in from the stored state,
+    then run over the rest of the sequence.  Returns the online net's
+    burnt-in state, the target net's q and the online net's q over
+    obs[burn_in:]."""
+    with torch.no_grad():
+        stored = (x["stored_h"], x["stored_c"])
+        _, bi_state = r2d2_q_values(p, x["obs"][:burn_in], stored)
+        _, bi_state_t = r2d2_q_values(target_p, x["obs"][:burn_in], stored)
+        q_tgt, _ = r2d2_q_values(target_p, x["obs"][burn_in:], bi_state_t)
+        q_sel, _ = r2d2_q_values(p, x["obs"][burn_in:], bi_state)
+    return bi_state, q_tgt, q_sel
+
+
+def r2d2_loss(p, x, bi_state, q_tgt, next_act, S, burn_in, nstep, gamma,
+              **_):
+    """The example's loss_fn (:93-121): q over the W = S - burn_in - nstep
+    learning steps, the (W, nstep, B) reward windows masked past the first
+    terminal, and ops.q_nstep_td_error_with_rescale for each window (a loop
+    over W for the example's vmap).  Returns (mean loss, td (W, B))."""
+    W = S - burn_in - nstep
+    q, _ = r2d2_q_values(p, x["obs"][burn_in:burn_in + W], bi_state)
+    reward, done = x["reward"], x["done"]
+    r_wins = torch.stack([reward[burn_in + t:burn_in + t + nstep]
+                          for t in range(W)])                  # (W, nstep, B)
+    d_raw = torch.stack([done[burn_in + t:burn_in + t + nstep]
+                         for t in range(W)])
+    d_wins = d_raw.any(dim=1)                                  # (W, B)
+    alive = torch.cumprod(1.0 - d_raw.to(r_wins.dtype), dim=1)
+    alive = torch.cat([torch.ones_like(alive[:, :1]), alive[:, :-1]], dim=1)
+    r_wins = r_wins * alive
+    act = x["act"]
+    losses, td = zip(*(ops.q_nstep_td_error_with_rescale(
+        ops.q_nstep_td_data(q[t], q_tgt[nstep + t], act[burn_in + t],
+                            next_act[nstep + t], r_wins[t], d_wins[t],
+                            x["weight"]), gamma=gamma, nstep=nstep)
+        for t in range(W)))
+    return torch.stack(losses).mean(), torch.stack(td)
+
+
+def r2d2_setup(arrays, batches_np, dev):
+    """The online params on dev (Adam updates them in place), the frozen
+    target params, their Adam and the batches, on dev."""
+    p = models.from_jax_params(arrays, device=dev)
+    target_p = models.from_jax_params(arrays, device=dev)
+    return (p, target_p, torch.optim.Adam(p.parameters(), lr=R2D2_LR),
+            [to_dev(b, dev) for b in batches_np])
+
+
+def r2d2_step(p, target_p, opt, x, next_act=None, cfg=R2D2_CFG):
+    """One train step (:80-128) in configuration `cfg`: the targets,
+    double-DQN's argmax (or the given next_act), the loss, backward, Adam,
+    and the priorities 0.9 * max + 0.1 * mean of |td| over the window.
+    Returns the metrics (detached), the gradients by parameter name, the
+    online q over obs[burn_in:] and the argmax taken."""
+    bi_state, q_tgt, q_sel = r2d2_targets(p, target_p, x, **cfg)
+    if next_act is None:
+        next_act = q_sel.argmax(dim=-1)
+    opt.zero_grad()
+    loss, td = r2d2_loss(p, x, bi_state, q_tgt, next_act, **cfg)
+    loss.backward()
+    grads = {k: v.grad.clone() for k, v in p.named_parameters()}
+    opt.step()
+    per_seq = td.detach().abs()
+    priorities = 0.9 * per_seq.amax(dim=0) + 0.1 * per_seq.mean(dim=0)
+    return ({"loss": loss.detach(), "priorities": priorities}, grads, q_sel,
+            next_act)
+
+
+def argmax_near_ties(q_card, q_cpu, act_card, act_cpu, gap=1e-4) -> int:
+    """How many of the card's and the CPU's argmaxes differ; raises unless
+    each such entry is a near tie on the CPU (its two picks within `gap`)."""
+    q_cpu = q_cpu.detach()
+    diff = act_card.cpu() != act_cpu
+    if diff.any():
+        picked = q_cpu.gather(-1, act_card.cpu()[..., None])[..., 0]
+        if float((q_cpu.amax(dim=-1) - picked)[diff].max()) > gap:
+            raise AssertionError("r2d2: the card's argmax is not the CPU's "
+                                 "away from a tie")
+    return int(diff.sum())
+
+
+def phase_nstep(dev) -> dict:
+    rng = np.random.default_rng(SEED + 22)
+    x_np = nstep_arrays(rng)
+    r2_np = r2d2_arrays(rng, **R2D2_CFG)
+    batches_np = r2d2_batches(rng, R2D2_STEPS, **R2D2_CFG)
+    x = {k: to_dev(v, dev) for k, v in x_np.items()}
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    network.reset_route_counts()
+    out = {name: run() for name, run in nstep_op_calls(x).items()}
+    again = nstep_op_calls(x)["dist_nstep_td_error"]()
+    p, target_p, opt, batches = r2d2_setup(r2_np, batches_np, dev)
+    log, starts = [], []
+    for batch in batches:
+        starts.append((_cpu_copy(p.state_dict()),
+                       copy.deepcopy(opt.state_dict())))
+        log.append(r2d2_step(p, target_p, opt, batch))
+        starts[-1] = (*starts[-1], _cpu_copy(p.state_dict()))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    routes = dict(network.lstm_fused.routes)
+    check_launched("nstep", launches, NSTEP_KERNELS)
+    # Five lstm_fused calls a step: two burn-ins, the two nets over the
+    # sequence, the loss's forward.
+    if routes != {"kernel": 5 * R2D2_STEPS * R2D2_CFG["layers"],
+                  "recurrent": 0}:
+        raise AssertionError(f"nstep: the layers' routes are {routes}, not "
+                             f"the kernels")
+    if not all(torch.equal(a, b) for a, b in
+               zip(out["dist_nstep_td_error"], again)):
+        raise AssertionError("dist_nstep_td_error: repeated runs differ")
+
+    cpu = torch.device("cpu")
+    ref = {name: run() for name, run in nstep_op_calls(
+        {k: to_dev(v, cpu) for k, v in x_np.items()}).items()}
+    result = {"launches": launches, "lstm_fused_routes": routes,
+              "tolerance": {"rtol": RTOL, "atol": ATOL,
+                            "grads_atol_rel_to_max": GRAD_ATOL_REL},
+              "dist_nstep_bitwise_repeatable": True,
+              "check_vs_cpu": {}, "r2d2_params_vs_cpu": {}}
+    for name, (loss, per, grad) in out.items():
+        r_loss, r_per, r_grad = ref[name]
+        result["check_vs_cpu"][name] = {
+            **compare(f"{name} loss and errors", [loss, per], [r_loss, r_per]),
+            "grad": compare(f"{name} grad", [grad], [r_grad], atol=0.0,
+                            atol_rel=GRAD_ATOL_REL)}
+    # Each CPU step starts from the card's parameters and Adam state before
+    # that step, and takes the card's double-DQN argmax (held against the
+    # CPU's own up to near ties), as phase upgo holds the AlphaStar steps.
+    ref_p, ref_target, ref_opt, ref_batches = r2d2_setup(r2_np, batches_np,
+                                                         cpu)
+    ties = 0
+    for i, ((m, g, q_sel, next_act), (p_before, opt_before, p_after)) in \
+            enumerate(zip(log, starts)):
+        ref_p.load_state_dict(p_before)
+        ref_opt.load_state_dict(opt_before)
+        _, _, ref_q_sel = r2d2_targets(ref_p, ref_target, ref_batches[i],
+                                       **R2D2_CFG)
+        compare(f"r2d2 step {i} q", [q_sel], [ref_q_sel])
+        ties += argmax_near_ties(q_sel, ref_q_sel, next_act,
+                                 ref_q_sel.argmax(dim=-1))
+        rm, rg, _, _ = r2d2_step(ref_p, ref_target, ref_opt, ref_batches[i],
+                                 next_act.cpu())
+        result["check_vs_cpu"][f"r2d2 step {i}"] = compare(
+            f"r2d2 step {i} loss and priorities", list(m.values()),
+            list(rm.values()))
+        for k in rg:
+            compare(f"r2d2 step {i} grad {k}", [g[k]], [rg[k]], atol=0.0,
+                    atol_rel=GRAD_ATOL_REL)
+        result["r2d2_params_vs_cpu"][f"step {i}"] = check_adam_params(
+            f"r2d2 step {i}", p_after, dict(ref_p.named_parameters()),
+            [rg], R2D2_LR, 1)
+    result["r2d2_argmax_near_ties"] = ties
+    result["r2d2_losses"] = [float(m["loss"]) for m, *_ in log]
+    result["r2d2_max_priority"] = [float(m["priorities"].max())
+                                   for m, *_ in log]
+    for name, fn in nstep_timed_calls(x, r2_np, batches_np, dev).items():
+        result[f"ms_per_{name}"] = host_ms(fn, 7)
+    return result
+
+
+def nstep_timed_calls(x, r2_np, batches_np, dev):
+    """The end-to-end calls that are timed: each TD op's forward +
+    backward at its NS_* shape, and one R2D2 train step."""
+    p, target_p, opt, batches = r2d2_setup(r2_np, batches_np[:1], dev)
+    calls = nstep_op_calls(x)
+    shapes = {"q_nstep_td_error": "B64_N64",
+              "q_nstep_td_error_with_rescale": "B64_N64",
+              "dist_nstep_td_error": "B128_N128_atoms51",
+              "qrdqn_nstep_td_error": "tau64_B4096_N64",
+              "iqn_nstep_td_error": "tau33_B64_N8"}
+    return {**{f"{name}_fwd_bwd_{shapes[name]}": calls[name]
+               for name in calls},
+            "r2d2_train_step_S20_B32": lambda: r2d2_step(
+                p, target_p, opt, batches[0])}
+
+
+# ----------------------------------------------------------- phase 10 ----
+
 def profile_one(fn) -> dict:
     """torch.profiler over one call of fn after a warm-up call: device busy
     time (the sum of kernel and copy times on the one stream), the wall time
@@ -2206,8 +2549,9 @@ def phase_profile(dev) -> dict:
     """profile_one over each timed call of the slice, the train step at
     B=256 and at B=32 (V1) in float32 and in bf16, the three on-policy
     calls and the weighted ops.td_lambda_error (kernel 8's launch), the
-    UPGO loss, the AlphaStar train step and the four scan entry points of
-    phase upgo (kernel 6's launches)."""
+    UPGO loss, the AlphaStar train step, the four scan entry points of
+    phase upgo (kernel 6's launches), and phase nstep's five TD ops and
+    R2D2 train step."""
     _, params, obs, serve_obs, _, _, _, big_x = slice_inputs(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
@@ -2253,6 +2597,15 @@ def phase_profile(dev) -> dict:
         out[name] = profile_one(timed[name])
     out["scan_entry_points_T1024_B4096"] = profile_one(
         lambda: run_scan_entry_points(x))
+    # Phase nstep's timed calls (the five TD ops, the R2D2 step), where the
+    # checkout has the TD family (--profile also runs in an older one).
+    if hasattr(ops, "qrdqn_nstep_td_error"):
+        rng = np.random.default_rng(SEED + 23)
+        x = {k: to_dev(v, dev) for k, v in nstep_arrays(rng).items()}
+        for name, fn in nstep_timed_calls(
+                x, r2d2_arrays(rng, **R2D2_CFG),
+                r2d2_batches(rng, 1, **R2D2_CFG), dev).items():
+            out[name] = profile_one(fn)
     return out
 
 
@@ -2415,6 +2768,7 @@ def main() -> int:
                      ("bf16", lambda: phase_bf16(dev)),
                      ("onpolicy", lambda: phase_onpolicy(dev)),
                      ("upgo", lambda: phase_upgo(dev)),
+                     ("nstep", lambda: phase_nstep(dev)),
                      ("profile", lambda: phase_profile(dev))):
         start = time.perf_counter()
         try:
@@ -2428,13 +2782,15 @@ def main() -> int:
 
     rows = results["kernels"]
     # Launches on each counted path run: the slice, the train legs, the bf16
-    # path, the on-policy path, the UPGO/AlphaStar path.
+    # path, the on-policy path, the UPGO/AlphaStar path, the TD family and
+    # the R2D2 learner.
     by_path = {"slice": results["slice"]["launches"],
                **{f"train {leg}": results["train"][leg]["launches"]
                   for leg in results["train"] if leg.startswith("B=")},
                "bf16": results["bf16"]["launches"],
                "onpolicy": results["onpolicy"]["launches"],
-               "upgo": results["upgo"]["launches"]}
+               "upgo": results["upgo"]["launches"],
+               "nstep": results["nstep"]["launches"]}
     check_launched("all paths", {name: sum(c[name] for c in by_path.values())
                                  for name, *_ in KERNELS},
                    [name for name, *_ in KERNELS])

@@ -22,18 +22,12 @@
 // error kernels move 50.3 MB each (15 us at 3.35 TB/s), the loss kernel
 // 33.6 MB (10 us), each UPGO kernel 67.1 MB (20 us).
 //
-// Two walks.  GAE, the TD(lambda) returns, loss and error and the UPGO loss
-// take the chunked walk of csrc/vtrace.cu, with its pieces from
-// csrc/chunked_scan.cuh: a CTA owns `cols` columns x `chunks` chunks of 8
-// steps, loads one super-tile ahead, composes each chunk's affine pair,
-// folds the pairs in one fixed order and re-walks each chunk from its
-// carry-in (the design notes at those kernels).  The UPGO advantage
-// (upgo_kernel) still walks one column with one thread, backwards, loading
-// kUnroll steps of every stream before computing them; neighbouring threads
-// own neighbouring columns, so every load and store is coalesced.  At
-// T=1024, B=4096 that is 64 dependent round trips to memory per column on
-// only 4096 threads, 6x its bound; it stays on this walk, bit for bit,
-// until it is redesigned in turn.
+// One walk.  Every kernel here takes the chunked walk of csrc/vtrace.cu,
+// with its pieces from csrc/chunked_scan.cuh: a CTA owns `cols` columns x
+// `chunks` chunks of 8 steps, loads one super-tile ahead, composes each
+// chunk's affine pair, folds the pairs in one fixed order and re-walks each
+// chunk from its carry-in (the design notes at those kernels).  No kernel
+// walks one column with one thread.
 // Columns past B neither load nor store.  The loss kernels write one partial
 // per column into a (1, B) buffer that the caller sums in a fixed order (no
 // float atomics), so repeated runs are bitwise equal and a ragged B adds
@@ -44,9 +38,6 @@
 namespace {
 
 using namespace chunked_scan;
-
-constexpr int kThreads = 32;
-constexpr int kUnroll = 16;
 
 // A thread's chunk of the TD(lambda) and GAE walks: kChunk steps of r and
 // the kChunk + 1 value rows V_t0 ... V_t0+kChunk (the row past a chunk is
@@ -262,33 +253,41 @@ int launch_chunked(Kernel kernel, int floats, int T, int B, int cols,
 // binary the other products are exact: a_t is r_t where d_t = 1, else the
 // rounded add r_t + V_{t+1}.
 //
-// The loss partials sum_t adv_t * lp_t (kLossSum, the one epilogue so far: the
-// advantage plane still takes upgo_kernel below), chunked over T as
-// td_lambda_chunked_kernel is.  Each step is the pair (a_t, d_t); steps past T
-// compose to the identity (a = 0, coefficient 1), and d_{T-1} = 0 cuts the
-// carry from above T, so the walk starts from carry 0.  A chunk's decisions
-// read one row of r and two of V past it: the next chunk's first rows, read
-// again from the L2, as TdChunk reads V.  Within a run of d = 1 the chunk
-// pairs add rewards in another order than a one-step walk would (the sums are
-// reassociated); integer-valued inputs still sum exactly.  The epilogue
-// re-walks each chunk from its carry-in and adds adv_t * lp_t for t < T and
-// col < B to the thread's partial; store_column_sum puts one partial per
-// column into the (1, B) buffer, as in td_lambda_chunked_kernel<kLossSum>.
+// Two epilogues on one walk, chunked over T as td_lambda_chunked_kernel is:
+// the loss partials sum_t adv_t * lp_t (kLossSum, kernel 12) and the
+// advantage plane adv_t (kAdvantage, kernel 11).  Each step is the pair
+// (a_t, d_t); steps past T compose to the identity (a = 0, coefficient 1),
+// and d_{T-1} = 0 cuts the carry from above T, so the walk starts from carry
+// 0.  A chunk's decisions read one row of r and two of V past it: the next
+// chunk's first rows, read again from the L2, as TdChunk reads V.  Within a
+// run of d = 1 the chunk pairs add rewards in another order than a one-step
+// walk would (the sums are reassociated); integer-valued inputs still sum
+// exactly.  The epilogue re-walks each chunk from its carry-in.  kLossSum
+// adds adv_t * lp_t for t < T and col < B to the thread's partial, and
+// store_column_sum puts one partial per column into the (1, B) buffer, as in
+// td_lambda_chunked_kernel<kLossSum>.  kAdvantage stores adv_t for t < T
+// and col < B (coalesced), keeps no partial and loads no lp: its chunk holds
+// three streams, and its shared memory only the two buffers of pairs.
+enum class UpgoEpilogue { kLossSum, kAdvantage };
+
+template <UpgoEpilogue kEpi>
 struct UpgoChunk {
-  float rho[kChunk], lp[kChunk], r[kChunk + 1], v[kChunk + 2];
+  static constexpr bool kLp = kEpi == UpgoEpilogue::kLossSum;
+  float rho[kChunk], lp[kLp ? kChunk : 1], r[kChunk + 1], v[kChunk + 2];
 };
 
+template <UpgoEpilogue kEpi>
 __device__ __forceinline__ void load_upgo_chunk(
-    UpgoChunk& c, const float* __restrict__ rhos, const float* __restrict__ lp,
-    const float* __restrict__ reward, const float* __restrict__ value, int t0,
-    int col, int T, int B) {
+    UpgoChunk<kEpi>& c, const float* __restrict__ rhos,
+    const float* __restrict__ lp, const float* __restrict__ reward,
+    const float* __restrict__ value, int t0, int col, int T, int B) {
   const bool in_col = col < B && t0 >= 0;
 #pragma unroll
   for (int u = 0; u < kChunk; ++u) {
     const bool in = in_col && t0 + u < T;
     const size_t o = in ? (size_t)(t0 + u) * B + col : 0;
     c.rho[u] = load_once(rhos + o, in);
-    c.lp[u] = load_once(lp + o, in);
+    if constexpr (UpgoChunk<kEpi>::kLp) c.lp[u] = load_once(lp + o, in);
   }
 #pragma unroll
   for (int u = 0; u <= kChunk; ++u) {
@@ -301,8 +300,6 @@ __device__ __forceinline__ void load_upgo_chunk(
     c.v[u] = load_once(value + (in ? (size_t)(t0 + u) * B + col : 0), in);
   }
 }
-
-enum class UpgoEpilogue { kLossSum };
 
 template <UpgoEpilogue kEpi>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -321,7 +318,7 @@ upgo_chunked_kernel(const float* __restrict__ rhos,
 
   const int tile = chunks * kChunk;
   int st = (T + tile - 1) / tile - 1;            // the last super-tile
-  UpgoChunk cur, nxt;
+  UpgoChunk<kEpi> cur, nxt;
   load_upgo_chunk(cur, rhos, lp, reward, value, st * tile + own * kChunk, col,
                   T, B);
   float carry = 0.f;                             // cut by d_{T-1} = 0
@@ -352,52 +349,18 @@ upgo_chunked_kernel(const float* __restrict__ rhos,
       ret = a[u] + c[u] * ret;
       if (col < B && t0 + u < T) {
         const float adv = cur.rho[u] * (ret - cur.v[u]);
-        sum += adv * cur.lp[u];
+        if constexpr (kEpi == UpgoEpilogue::kLossSum)
+          sum += adv * cur.lp[u];
+        else
+          out[(size_t)(t0 + u) * B + col] = adv;
       }
     }
     cur = nxt;
   }
 
-  store_column_sum(smem + 4 * plane, sum, cols, chunks, x, own, col, B, out);
-}
-
-// The UPGO advantage plane (kernel 11) on the one-thread walk: r_{t+1},
-// V_{t+2} and V_{t+1} carried backwards; adv_t stored for every t.
-__global__ void __launch_bounds__(kThreads)
-upgo_kernel(const float* __restrict__ rhos, const float* __restrict__ reward,
-            const float* __restrict__ value, float* __restrict__ out, int T,
-            int B) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  float v_next = value[(size_t)T * B + b];   // V_{t+1}, starts at V_T
-  float v_next2 = 0.f, r_next = 0.f;         // V_{t+2}, r_{t+1}
-  float ret = 0.f;
-  for (int t0 = T - 1; t0 >= 0; t0 -= kUnroll) {
-    float hv[kUnroll], rv[kUnroll], vv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 - u;
-      hv[u] = rv[u] = vv[u] = 0.f;
-      if (t >= 0) {
-        const size_t o = (size_t)t * B + b;
-        hv[u] = __ldg(rhos + o);
-        rv[u] = __ldg(reward + o);
-        vv[u] = __ldg(value + o);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 - u;
-      if (t >= 0) {
-        const bool d = t < T - 1 && __fadd_rn(r_next, v_next2) >= v_next;
-        ret = d ? __fadd_rn(rv[u], ret) : __fadd_rn(rv[u], v_next);
-        out[(size_t)t * B + b] = hv[u] * (ret - vv[u]);
-        r_next = rv[u];
-        v_next2 = v_next;
-        v_next = vv[u];
-      }
-    }
-  }
+  if constexpr (kEpi == UpgoEpilogue::kLossSum)
+    store_column_sum(smem + 4 * plane, sum, cols, chunks, x, own, col, B,
+                     out);
 }
 
 }  // namespace
@@ -444,14 +407,15 @@ int td_lambda_err_f32(const float* value, const float* reward, float* err,
                         gamma_lambda);
 }
 
-// rhos, reward (T, B), value (T+1, B) in; adv (T, B) out.
+// rhos, reward (T, B), value (T+1, B) in; adv (T, B) out.  Tiled as
+// gae_f32.
 int upgo_advantages_f32(const float* rhos, const float* reward,
                         const float* value, float* adv, int T, int B,
-                        void* stream) {
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  upgo_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(rhos, reward,
-                                                           value, adv, T, B);
-  return (int)cudaGetLastError();
+                        int cols, int chunks, void* stream) {
+  return launch_chunked(upgo_chunked_kernel<UpgoEpilogue::kAdvantage>, 4, T,
+                        B, cols, chunks, stream, rhos,
+                        static_cast<const float*>(nullptr), reward, value,
+                        adv, T, B);
 }
 
 // rhos, lp, reward (T, B), value (T+1, B) in; parts (1, B) out: sum_t adv_t *

@@ -50,6 +50,7 @@ from .rl_scans import (
     td_lambda_loss,
     td_lambda_loss_plain,
     upgo_advantages,
+    upgo_advantages_launch_shape,
     upgo_advantages_plain,
     upgo_loss,
     upgo_loss_launch_shape,

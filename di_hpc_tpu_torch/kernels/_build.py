@@ -65,7 +65,7 @@ _SIGNATURES = {
                            + [_p]),
     "td_lambda_err_f32": (_i, [_p] * 3 + [_i] * 2 + [_f] * 2 + [_i] * 2
                           + [_p]),
-    "upgo_advantages_f32": (_i, [_p] * 4 + [_i] * 2 + [_p]),
+    "upgo_advantages_f32": (_i, [_p] * 4 + [_i] * 4 + [_p]),
     "upgo_loss_f32": (_i, [_p] * 5 + [_i] * 4 + [_p]),
     "linear_scan_f32": (_i, [_p] * 4 + [_i] * 5 + [_p]),
     "dihpc_error_string": (ctypes.c_char_p, [_i]),

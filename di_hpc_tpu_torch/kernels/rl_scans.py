@@ -41,11 +41,12 @@ launches `gae_launch_shape(T, B)`, `lambda_returns_launch_shape(T, B)`,
 :179-182.
 
 And of its UPGO part (a full plane of binary lambdas derived in-kernel,
-csrc/rl_scans.cu):
+csrc/rl_scans.cu, both kernels one walk chunked over T with two
+epilogues):
 
   - `upgo_advantages` ~ `upgo_advantages_pallas`: rhos * (upgo_returns -
-    V[:-1]) (T, B), one thread per column walking time backwards, with the
-    zero gradient of rl_scans.py:360-363.
+    V[:-1]) (T, B), chunked over T (`upgo_advantages_launch_shape(T, B)`),
+    with the zero gradient of rl_scans.py:360-363.
   - `upgo_loss` ~ `upgo_loss_pallas`: -sum(adv * lp) / TB from per-column
     partial sums, chunked over T (`upgo_loss_launch_shape(T, B)`), with the
     recompute backward of rl_scans.py:452-465:
@@ -63,6 +64,7 @@ __all__ = ["vtrace_losses", "vtrace_losses_plain", "vtrace_returns_adv",
            "vtrace_returns_adv_plain", "vtrace_launch_shape",
            "td_lambda_launch_shape", "td_lambda_err_launch_shape",
            "lambda_returns_launch_shape", "upgo_loss_launch_shape",
+           "upgo_advantages_launch_shape",
            "gae_launch_shape", "chunked_launch_shape", "gae",
            "gae_plain", "lambda_returns", "lambda_returns_plain",
            "td_lambda_loss", "td_lambda_loss_plain", "td_lambda_err",
@@ -202,6 +204,15 @@ def upgo_loss_launch_shape(T: int, B: int, sms: int = 132, cols=None,
     its super-tiles from the last.  The dynamic shared memory holds two
     buffers of the chunks' (A, D) pairs and the chunk partials."""
     return chunked_launch_shape("upgo_loss", T, B, sms, cols, chunks, 5)
+
+
+def upgo_advantages_launch_shape(T: int, B: int, sms: int = 132,
+                                 cols=None, chunks=None) -> dict:
+    """The UPGO advantage kernel's launch (chunked_launch_shape): the loss
+    kernel's walk storing the advantage plane, whose shared memory holds
+    only the two buffers of the chunks' (A, D) pairs."""
+    return chunked_launch_shape("upgo_advantages", T, B, sms, cols, chunks,
+                                4)
 
 
 def gae_launch_shape(T: int, B: int, sms: int = 132, cols=None,
@@ -613,15 +624,22 @@ def _check_upgo(name, tensors: dict):
 def _upgo_advantages_forward(rhos, reward, value):
     if _build.on_cpu(rhos, reward, value):
         return upgo_advantages_plain(rhos, reward, value)
+    return _upgo_advantages_cuda(rhos, reward, value)
+
+
+def _upgo_advantages_cuda(rhos, reward, value, cols=None, chunks=None):
+    """The UPGO advantage kernel's launch; `cols` and `chunks` override
+    upgo_advantages_launch_shape's choice, to measure the candidates."""
     name = "upgo_advantages"
     (rhos, reward, value), T, B = _check_upgo(
         name, {"rhos": rhos, "reward": reward, "value": value})
+    tiling = _tiling(upgo_advantages_launch_shape, reward, cols, chunks)
     adv = torch.empty_like(reward)
     with torch.cuda.device(reward.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = _build.library().cdll.upgo_advantages_f32(
             rhos.data_ptr(), reward.data_ptr(), value.data_ptr(),
-            adv.data_ptr(), T, B, stream)
+            adv.data_ptr(), T, B, *tiling, stream)
     _build.check_status(name, status)
     upgo_advantages.launches += 1
     return adv

@@ -18,6 +18,8 @@ from .convert import (
     AlphaStarArrays,
     AlphaStarParams,
     EntitySelectionArrays,
+    R2D2Arrays,
+    R2D2Params,
     from_jax_params,
     to_numpy_params,
 )

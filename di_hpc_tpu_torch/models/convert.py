@@ -1,8 +1,9 @@
 """Weight carry-over between the JAX package and the port.
 
 The JAX package keeps its parameters as NamedTuples of arrays
-(ActorCriticParams, LSTMParams, EntitySelectionParams, and the AlphaStar
-example's Params in examples/alphastar_policy_training.py:35-43).
+(ActorCriticParams, LSTMParams, EntitySelectionParams, the AlphaStar
+example's Params in examples/alphastar_policy_training.py:35-43 and the
+R2D2 example's R2D2Params in examples/r2d2_training.py:33-38).
 Converted to numpy (for example `jax.tree.map(np.asarray, params)`, which
 keeps the tuples), they load into the port's modules unchanged: both keep
 the (in, out) weight layout and the gate orders (i, f, o, u in the LSTM
@@ -24,13 +25,15 @@ from .actor_critic_lstm import ActorCriticParams
 from .entity_selection import EntitySelectionParams
 
 __all__ = ["ActorCriticArrays", "EntitySelectionArrays", "AlphaStarArrays",
-           "AlphaStarParams", "from_jax_params", "to_numpy_params"]
+           "AlphaStarParams", "R2D2Arrays", "R2D2Params", "from_jax_params",
+           "to_numpy_params"]
 
 _AC_FIELDS = ("embed_w", "embed_b", "lstm", "policy_w", "policy_b",
               "value_w", "value_b")
 _SEL_FIELDS = ("w_ih", "w_hh", "bias", "w_query")
 _AS_FIELDS = ("ent_w", "ent_b", "spatial_w", "core", "act_w", "val_w",
               "ae_w", "sel")
+_R2D2_FIELDS = ("embed_w", "embed_b", "lstm", "q_w", "q_b")
 
 
 class ActorCriticArrays(NamedTuple):
@@ -83,6 +86,28 @@ class AlphaStarParams(nn.Module):
         self.sel = sel
 
 
+class R2D2Arrays(NamedTuple):
+    """The R2D2 example's R2D2Params as numpy arrays, field for field."""
+    embed_w: np.ndarray             # (obs_dim, hidden)
+    embed_b: np.ndarray             # (hidden,)
+    lstm: LSTMParams                # the LN-LSTM core, hidden -> hidden
+    q_w: np.ndarray                 # (hidden, actions)
+    q_b: np.ndarray                 # (actions,)
+
+
+class R2D2Params(nn.Module):
+    """The R2D2 example's R2D2Params as an nn.Module, with its field names:
+    the tensors are parameters, `lstm` an LSTMWeights."""
+
+    def __init__(self, embed_w, embed_b, lstm: LSTMWeights, q_w, q_b):
+        super().__init__()
+        self.embed_w = nn.Parameter(embed_w)
+        self.embed_b = nn.Parameter(embed_b)
+        self.lstm = lstm
+        self.q_w = nn.Parameter(q_w)
+        self.q_b = nn.Parameter(q_b)
+
+
 def _tensor(a, device):
     """A float32 tensor, or a bfloat16 one for a bf16 array: numpy has no
     bfloat16 of its own (JAX's arrays come out as ml_dtypes.bfloat16), so
@@ -107,9 +132,14 @@ def _lstm_from(tree, device) -> LSTMParams:
 
 def from_jax_params(tree, device="cuda"):
     """numpy ActorCriticParams -> ActorCriticParams module; the AlphaStar
-    example's Params -> AlphaStarParams; EntitySelectionParams ->
-    EntitySelectionParams module; LSTMParams -> LSTMWeights module.  Float32
-    on `device`, bf16 where the array is bf16."""
+    example's Params -> AlphaStarParams; R2D2Params -> R2D2Params module;
+    EntitySelectionParams -> EntitySelectionParams module; LSTMParams ->
+    LSTMWeights module.  Float32 on `device`, bf16 where the array is
+    bf16."""
+    if hasattr(tree, "q_w"):
+        return R2D2Params(
+            *(from_jax_params(tree.lstm, device) if f == "lstm"
+              else _tensor(getattr(tree, f), device) for f in _R2D2_FIELDS))
     if hasattr(tree, "embed_w"):
         return ActorCriticParams(
             *(_lstm_from(tree.lstm, device) if f == "lstm"
@@ -130,8 +160,8 @@ def _np(t):
 
 def to_numpy_params(module):
     """The inverse of from_jax_params: ActorCriticParams ->
-    ActorCriticArrays, AlphaStarParams -> AlphaStarArrays,
-    EntitySelectionParams -> EntitySelectionArrays, LSTMWeights ->
+    ActorCriticArrays, AlphaStarParams -> AlphaStarArrays, R2D2Params ->
+    R2D2Arrays, EntitySelectionParams -> EntitySelectionArrays, LSTMWeights ->
     LSTMParams of numpy arrays (None kept for absent LN fields)."""
     if isinstance(module, ActorCriticParams):
         return ActorCriticArrays(
@@ -141,6 +171,10 @@ def to_numpy_params(module):
         return AlphaStarArrays(
             *(to_numpy_params(getattr(module, f)) if f in ("core", "sel")
               else _np(getattr(module, f)) for f in _AS_FIELDS))
+    if isinstance(module, R2D2Params):
+        return R2D2Arrays(
+            *(to_numpy_params(module.lstm) if f == "lstm"
+              else _np(getattr(module, f)) for f in _R2D2_FIELDS))
     if isinstance(module, EntitySelectionParams):
         return EntitySelectionArrays(
             *(_np(getattr(module, f)) for f in _SEL_FIELDS))

@@ -8,11 +8,29 @@ from .scan import (
 )
 from .gae import GAE, gae, gae_data
 from .td import (
+    DistNStepTD,
+    IQNNStepTDError,
+    QNStepTD,
+    QNStepTDRescale,
+    QRDQNNStepTDError,
     TDLambda,
+    dist_nstep_td_data,
+    dist_nstep_td_error,
     generalized_lambda_returns,
+    iqn_nstep_td_data,
+    iqn_nstep_td_error,
     multistep_forward_view,
+    nstep_return,
+    nstep_return_data,
+    q_nstep_td_data,
+    q_nstep_td_error,
+    q_nstep_td_error_with_rescale,
+    qrdqn_nstep_td_data,
+    qrdqn_nstep_td_error,
     td_lambda_data,
     td_lambda_error,
+    value_inv_transform,
+    value_transform,
 )
 from .categorical import logp, logp_entropy
 from .ppo import (

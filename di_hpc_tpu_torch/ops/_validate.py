@@ -99,3 +99,34 @@ def check_ppo_fast(op, logit_new, logp_old, action, value_new, value_old,
                       (("logp_old", logp_old), ("value_new", value_new),
                        ("value_old", value_old), ("adv", adv),
                        ("return_", return_)), weight)
+
+
+def check_nstep(op, q, next_n_q, action, next_n_action, reward, done, weight,
+                nstep: int, q_ndim: int = 2, batch_axis: int = 0,
+                allow_col_weight: bool = False):
+    """The n-step TD family; batch_axis selects B in q (IQN's layout is
+    (tau, B, N), the others lead with the batch).  allow_col_weight admits a
+    (B, 1) weight, only for the op that expands a 1-D weight itself
+    (dist_nstep); anywhere else a (B, 1) weight would broadcast against the
+    (B,) per-sample errors into a (B, B) mean."""
+    if q.ndim != q_ndim:
+        _fail(op, f"q must be {q_ndim}-D; got {tuple(q.shape)}")
+    if next_n_q.ndim != q.ndim:
+        _fail(op, f"next_n_q must match q's rank; got "
+                  f"{tuple(next_n_q.shape)} vs q {tuple(q.shape)}")
+    B = q.shape[batch_axis]
+    for nm, x in (("action", action), ("next_n_action", next_n_action)):
+        if tuple(x.shape) != (B,):
+            _fail(op, f"{nm} must have shape ({B},); got {tuple(x.shape)}")
+        if not _is_int(x):
+            _fail(op, f"{nm} must be an integer tensor; got {x.dtype}")
+    if tuple(reward.shape) != (nstep, B):
+        _fail(op, f"reward must have shape (nstep, B) = ({nstep}, {B}); "
+                  f"got {tuple(reward.shape)}")
+    if tuple(done.shape) != (B,):
+        _fail(op, f"done must have shape ({B},); got {tuple(done.shape)}")
+    ok_weight = ((B,), (B, 1)) if allow_col_weight else ((B,),)
+    if weight is not None and tuple(weight.shape) not in ok_weight:
+        accepted = " or ".join(str(s) for s in ok_weight)
+        _fail(op, f"weight must have shape {accepted}; got "
+                  f"{tuple(weight.shape)}")

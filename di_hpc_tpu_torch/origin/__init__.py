@@ -20,10 +20,23 @@ from .rnn import (
 )
 from .scatter_connection import ScatterConnection, scatter_connection
 from .td import (
-    generalized_lambda_returns,
-    multistep_forward_view,
+    value_transform,
+    value_inv_transform,
+    nstep_return,
+    nstep_return_data,
     td_lambda_data,
     td_lambda_error,
+    generalized_lambda_returns,
+    multistep_forward_view,
+    q_nstep_td_data,
+    q_nstep_td_error,
+    q_nstep_td_error_with_rescale,
+    dist_nstep_td_data,
+    dist_nstep_td_error,
+    qrdqn_nstep_td_data,
+    qrdqn_nstep_td_error,
+    iqn_nstep_td_data,
+    iqn_nstep_td_error,
 )
 from .upgo import tb_cross_entropy, upgo_loss, upgo_returns
 from .vtrace import (

@@ -10,8 +10,10 @@ three LSTM kernels against their plain bf16 versions, the bf16 train step on
 the card against the CPU, and strided (T, B) inputs through the RL ops;
 the chunked linear recurrence (kernel 6), TD(lambda) loss (kernel 9), GAE
 (kernel 7), TD(lambda) error plane (kernel 10), lambda-returns plane
-(kernel 8) and UPGO loss (kernel 12) against their plain versions at ragged
-shapes, boundaries, (gamma, lambda), exact ties and tilings; and
+(kernel 8), UPGO loss (kernel 12) and UPGO advantage plane (kernel 11)
+against their plain versions at ragged shapes, boundaries, (gamma, lambda),
+exact ties and tilings; the batch-bound TD family (ops.q_nstep_td_error and
+its kin) on the card against the same calls on the CPU; and
 `network.lstm_fused` with a gradient where the kernels cannot take the
 layer (H % 4 != 0, widths past each shared-memory plan, float16), against
 the same call on the CPU, with the route each layer took.
@@ -1446,6 +1448,134 @@ def test_lambda_returns_and_upgo_loss_refuse_a_tiling_past_512_threads(
     assert statuses == [1, 1]
     assert torch.equal(out, torch.full_like(reward, 7.0))
     assert torch.equal(parts, torch.full((1, B), 7.0, device=cuda))
+
+
+# ------------------------------------------- chunked scans: kernel 11 ----
+
+@pytest.mark.parametrize("B", CHUNKED_B)
+@pytest.mark.parametrize("T", CHUNKED_T)
+def test_upgo_advantages_chunked_kernel_matches_plain(cuda, T, B):
+    """The advantage plane against the plain version, bitwise equal on a
+    second run: kernel 12's walk, so a T that is not a multiple of the
+    super-tile adds nothing from above (T = 1, 1000; B = 4100)."""
+    rhos, _, reward, value = _full_plane_inputs(81, T, B, cuda)[2:]
+    got = _twice(kernels.upgo_advantages, rhos, reward, value)
+    torch.testing.assert_close(
+        got, kernels.upgo_advantages_plain(rhos, reward, value), rtol=RTOL,
+        atol=ATOL)
+
+
+@pytest.mark.parametrize("T,B,tiling", [(16, 8, (8, 2, 1)),
+                                        (128, 512, (8, 16, 64))])
+def test_upgo_advantages_chunked_kernel_at_its_callers_shapes(cuda, T, B,
+                                                              tiling):
+    """The AlphaStar step's T=16, B=8 and the backward of ops.upgo_loss at
+    T=128, B=512 take kernel 12's tilings on the H100's 132 SMs."""
+    shape = kernels.upgo_advantages_launch_shape(
+        T, B, kernels.rl_scans._sms(cuda))
+    assert (shape["cols"], shape["chunks"], shape["grid"]) == tiling
+    rhos, _, reward, value = _full_plane_inputs(82, T, B, cuda)[2:]
+    got = _twice(kernels.upgo_advantages, rhos, reward, value)
+    torch.testing.assert_close(
+        got, kernels.upgo_advantages_plain(rhos, reward, value), rtol=RTOL,
+        atol=ATOL)
+
+
+@pytest.mark.parametrize("T,B", [(40, 70), (1000, 33), (16, 8), (128, 512)])
+def test_upgo_advantages_equal_the_plain_version_on_integer_inputs(cuda, T,
+                                                                   B):
+    """Integer-valued inputs make exact ties and exact sums, whatever their
+    order: the chunked kernel's plane equals the plain version's."""
+    rng = np.random.default_rng(83)
+    reward, value = (torch.from_numpy(rng.integers(-2, 3, s).astype(
+        np.float32)).to(cuda) for s in ((T, B), (T + 1, B)))
+    rhos = torch.from_numpy(rng.integers(1, 3, (T, B)).astype(
+        np.float32)).to(cuda)
+    got = kernels.upgo_advantages(rhos, reward, value)
+    assert torch.equal(got, kernels.upgo_advantages_plain(rhos, reward,
+                                                          value))
+
+
+def test_upgo_advantages_chunked_kernel_takes_every_tiling(cuda):
+    T, B = 1000, 70
+    rhos, _, reward, value = _full_plane_inputs(84, T, B, cuda)[2:]
+    want = kernels.upgo_advantages_plain(rhos, reward, value)
+    for cols, chunks in CHUNKED_TILINGS:
+        got = kernels.rl_scans._upgo_advantages_cuda(
+            rhos, reward, value, cols=cols, chunks=chunks)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                   msg=f"{cols}x{chunks}")
+
+
+@pytest.mark.parametrize("T,B", [(1000, 4100), (128, 512), (16, 8)])
+def test_upgo_advantages_column_sums_agree_with_the_loss_partials(cuda, T,
+                                                                  B):
+    """Kernel 11's adv * lp summed down each column against kernel 12's
+    (1, B) partials at the same tiling: one walk, two epilogues, so they
+    agree to float tolerance (the sums are taken in another order)."""
+    rhos, lp, reward, value = _full_plane_inputs(85, T, B, cuda)[2:]
+    adv = kernels.upgo_advantages(rhos, reward, value)
+    parts = torch.empty((1, B), device=cuda)
+    tiling = kernels.rl_scans._tiling(kernels.upgo_loss_launch_shape, reward,
+                                      None, None)
+    status = _build.library().cdll.upgo_loss_f32(
+        *(t.data_ptr() for t in (rhos, lp, reward, value, parts)), T, B,
+        *tiling, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert status == 0
+    torch.testing.assert_close(parts[0], (adv * lp).sum(dim=0), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_upgo_advantages_refuse_a_tiling_past_512_threads(cuda):
+    T, B = 20, 40
+    rhos, _, reward, value = _full_plane_inputs(86, T, B, cuda)[2:]
+    with pytest.raises(ValueError, match="exceed 512 threads"):
+        kernels.rl_scans._upgo_advantages_cuda(rhos, reward, value, cols=64,
+                                               chunks=16)
+    out = torch.full_like(reward, 7.0)
+    status = _build.library().cdll.upgo_advantages_f32(
+        *(t.data_ptr() for t in (rhos, reward, value, out)), T, B, 64, 16,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert status == 1
+    assert torch.equal(out, torch.full_like(reward, 7.0))
+
+
+# ------------------------------------------ the batch-bound TD family ----
+
+TD_OPS = ["q_nstep_td_error", "q_nstep_td_error_with_rescale",
+          "dist_nstep_td_error", "qrdqn_nstep_td_error", "iqn_nstep_td_error"]
+
+
+def _td_inputs(dev):
+    """chip_smoke's inputs of the five TD ops (the JAX bench's shapes) on
+    dev."""
+    x_np = chip_smoke.nstep_arrays(np.random.default_rng(87))
+    return {k: chip_smoke.to_dev(v, dev) for k, v in x_np.items()}
+
+
+@pytest.mark.parametrize("name", TD_OPS)
+def test_td_ops_on_card_match_cpu(cuda, name):
+    """Each TD op's loss, per-sample errors and gradient in q (or dist) on
+    the card against the same call on the CPU; the gradients, which sum
+    over the batch, within chip_smoke.GRAD_ATOL_REL of their largest
+    entry."""
+    got = chip_smoke.nstep_op_calls(_td_inputs(cuda))[name]()
+    want = chip_smoke.nstep_op_calls(_td_inputs(torch.device("cpu")))[name]()
+    torch.cuda.synchronize()
+    chip_smoke.compare(name, got[:2], want[:2])
+    chip_smoke.compare(f"{name} grad", got[2:], want[2:], atol=0.0,
+                       atol_rel=chip_smoke.GRAD_ATOL_REL)
+
+
+def test_dist_nstep_td_error_is_bitwise_repeatable_on_the_card(cuda):
+    """The C51 projection is built dense (no scatter-add, no float
+    atomics): repeated runs give the same bits, gradient included."""
+    run = chip_smoke.nstep_op_calls(_td_inputs(cuda))["dist_nstep_td_error"]
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 # ------------------------------------------------ lstm_fused routing ----

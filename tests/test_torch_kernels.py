@@ -163,9 +163,10 @@ def test_vtrace_launch_shape_covers_the_planes(T, B):
                                       "td_lambda_err_launch_shape",
                                       "gae_launch_shape",
                                       "lambda_returns_launch_shape",
-                                      "upgo_loss_launch_shape"])
+                                      "upgo_loss_launch_shape",
+                                      "upgo_advantages_launch_shape"])
 def test_chunked_scan_launch_shapes_cover_the_planes(shape_fn, T, B):
-    """Kernels 6, 9, 10, 7, 8 and 12 take the V-trace kernels' tiling: the
+    """Kernels 6, 9, 10, 7, 8, 12 and 11 take the V-trace kernels' tiling: the
     tiles cover T and B, a CTA holds at most 512 threads, its shared memory
     (two buffers of (A, D) pairs, and the losses' chunk partials) fits the
     H100's 227 KB, and the cols and chunks overrides are taken as given."""
@@ -206,6 +207,21 @@ def test_upgo_loss_launch_shape_at_its_callers_shapes(T, B, want):
     assert (shape["cols"], shape["chunks"], shape["grid"], shape["threads"],
             shape["super_tiles"]) == want
     assert shape["smem_bytes"] == 5 * 4 * shape["threads"]
+
+
+@pytest.mark.parametrize("T,B,want", [(16, 8, (8, 2, 1, 16, 1)),
+                                      (128, 512, (8, 16, 64, 128, 1)),
+                                      (1024, 4096, (32, 16, 128, 512, 8))])
+def test_upgo_advantages_launch_shape_at_its_callers_shapes(T, B, want):
+    """Kernel 11 takes kernel 12's tiling at the AlphaStar step's T=16, B=8,
+    at the backward of ops.upgo_loss (T=128, B=512) and at the north-star
+    plane; its shared memory holds only the two buffers of pairs."""
+    shape = kernels.upgo_advantages_launch_shape(T, B)
+    assert (shape["cols"], shape["chunks"], shape["grid"], shape["threads"],
+            shape["super_tiles"]) == want
+    loss = kernels.upgo_loss_launch_shape(T, B)
+    assert {**shape, "smem_bytes": loss["smem_bytes"]} == loss
+    assert shape["smem_bytes"] == 4 * 4 * shape["threads"]
 
 
 def test_non_cpu_inputs_go_to_the_kernel_checks_not_the_plain_version():
