@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # no arguments; needs one CUDA card
     python3 chip_smoke.py --digests    # only the LSTM and scan kernels'
                                        # output digests and ptxas lines
-    python3 chip_smoke.py --profile    # only phase 10 (profile)
+    python3 chip_smoke.py --profile    # only phase 11 (profile)
 
 Phases, each printing one JSON line (`{"phase": ...}`):
 
@@ -158,13 +158,40 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 (V1) on every layer.  Every output, gradient, step's loss,
                 priorities and updated parameters against the same calls
                 on the CPU; then ms per op call and per R2D2 step.
- 10. profile -- torch.profiler over one more run of each of the timed calls
+ 10. hostdata -- the host data plane and its two examples.  Ragged padding
+                at the JAX bench's configuration (bench.py:890-903: B=64
+                float32 items, 1D 32-128, 2D 48-80 x 32-64, 3D 24-32 x 24-32
+                x 32-40), each ungrouped, grouped by the oracle DP and by
+                sampled pivots (group 4): the padded batches, masks and
+                shapes on the card equal the CPU's bit for bit from numpy
+                inputs and from CUDA inputs (packed on the card), and
+                UnPadding gives back every input; host-clock medians of the
+                bucketing + pack, the transfer, the whole call and the
+                oracle's.  `stack_trajectories` and `TrajectoryBuffer.
+                sample_batch` (FIFO and replay) at the actor-learner's batch
+                (T=16, B=32, with a ragged float32 and int32 field), the
+                card's batch equal to the CPU's.  Then, counts set to 0 just
+                before and read just after: `entry()`'s forward, 3 steps of
+                the episodic A2C of examples/episodic_a2c_padding.py (its
+                configuration: 48 episodes of length 8-64, group 3; kernels
+                8 and 6 once per bucket) and 6 learner steps of the
+                actor-learner of examples/impala_actor_learner.py (obs 16,
+                H 64, 1 layer, T=16, B=32; kernels 1, 2, 3 and 5), each held
+                against the CPU: the forward, every episodic step's loss,
+                gradients and Adam update, the learner's step 0 (its batch
+                and parameters recorded), finite losses.  A checkpoint round
+                trip of the card's parameters and Adam state, bitwise; ms per
+                learner and episodic step; `utils.bench_fn` and
+                `utils.roofline` on `ops.gae` at T=1024, B=4096 beside phase
+                kernels' GAE row.
+ 11. profile -- torch.profiler over one more run of each of the timed calls
                 (forward, serving loop, V-trace, train step, the three
                 on-policy calls, the UPGO loss, the AlphaStar train step and
                 the bf16 train step), of the f32 and bf16 train steps at
                 B=32, of the weighted `ops.td_lambda_error` at T=1024,
-                B=4096, of phase upgo's four scan entry points and of phase
-                nstep's five TD ops and R2D2 step: device busy time, idle
+                B=4096, of phase upgo's four scan entry points, of phase
+                nstep's five TD ops and R2D2 step and of phase hostdata's
+                episodic step and learner step: device busy time, idle
                 share of the window and the top kernels by device time.
 
 Then one `{"kernels": [...]}` line, the nvidia-smi line, and, last, the
@@ -174,7 +201,7 @@ backward's inputs from the plain forward) and their ptxas lines, and of the
 scan kernels' (2, 3, 6-12) outputs at T=1024, B=4096 and at the ragged
 T=1000, B=4100: run in two checkouts, they show whether a change left those
 kernels bitwise the same.
-With `--profile` it prints only phase 10's line, which runs in an older
+With `--profile` it prints only phase 11's line, which runs in an older
 checkout too.  Any
 failure prints its phase
 with `"ok": false` and exits 1; no card (or no port beside this script)
@@ -184,12 +211,15 @@ exits non-zero before any result.
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -2510,6 +2540,363 @@ def nstep_timed_calls(x, r2_np, batches_np, dev):
 
 # ----------------------------------------------------------- phase 10 ----
 
+# Ragged padding at the JAX bench's reference configuration
+# (bench.py:890-903): B=64 float32 items per rank, each extent drawn from
+# these ranges; each ungrouped, grouped by the oracle DP and by sampled
+# pivots (group 4).
+PAD_B = 64
+PAD_RANGES = {1: ((32, 128),), 2: ((48, 80), (32, 64)),
+              3: ((24, 32), (24, 32), (32, 40))}
+PAD_MODES = {"": {}, "_grp4": {"group": 4, "group_mode": "oracle"},
+             "_sample4": {"group": 4, "group_mode": "sample"}}
+# The actor-learner's batch: T=16, B=32 trajectories of the example's
+# fields, plus one ragged float32 and one ragged int32 field.
+DATA_T, DATA_B = 16, 32
+# The episodic A2C (examples/episodic_a2c_padding.py, its configuration)
+# and the actor-learner (examples/impala_actor_learner.py) runs.
+EPISODIC_CFG = {"n_eps": 48, "obs_dim": 16, "hidden": 64, "actions": 6,
+                "l_min": 8, "l_max": 64, "group": 3, "gamma": 0.99,
+                "lambda_": 0.95}
+EPISODIC_STEPS, EPISODIC_LR = 3, 1e-3
+LEARNER_STEPS = 6
+HOSTDATA_KERNELS = ("lstm_layer_fused", "vtrace_losses",
+                    "vtrace_returns_adv", "lstm_layer_bwd_v1",
+                    "lambda_returns", "linear_scan")
+# bench_fn on ops.gae at the north-star plane.
+BENCH_T, BENCH_B = 1024, 4096
+
+
+def hostdata_modules() -> SimpleNamespace:
+    """The host data plane, utils, entry and examples of the port, imported
+    here and not at the top, so that --digests and --profile still run in
+    an older checkout that lacks them."""
+    from di_hpc_tpu_torch import data, entry, utils
+    from di_hpc_tpu_torch.examples import (
+        episodic_a2c_padding, impala_actor_learner)
+    from di_hpc_tpu_torch.utils import checkpoint
+    return SimpleNamespace(data=data, entry=entry, utils=utils,
+                           checkpoint=checkpoint,
+                           episodic=episodic_a2c_padding,
+                           learner=impala_actor_learner)
+
+
+def bitwise_equal(got, want) -> bool:
+    """Same dtype, shape and bits (after moving both to the host)."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.reshape(-1).view(torch.uint8),
+                            want.reshape(-1).view(torch.uint8)))
+
+
+def check_padded(name, got, want, group) -> None:
+    """Two results of a Padding call (tensors, masks, shapes; per bucket
+    when grouped) are equal bit for bit."""
+    if group == 1:
+        got, want = [[g] for g in got], [[w] for w in want]
+    if len(got[0]) != len(want[0]):
+        raise AssertionError(f"{name}: {len(got[0])} buckets, not "
+                             f"{len(want[0])}")
+    for gp, gm, gs, wp, wm, ws in zip(*got, *want):
+        if not (bitwise_equal(gp, wp) and bitwise_equal(gm, wm)
+                and list(gs) == list(ws)):
+            raise AssertionError(f"{name}: batch, mask or shapes differ")
+
+
+def padding_inputs(rng) -> dict:
+    return {ndim: [rng.standard_normal(tuple(int(rng.integers(lo, hi))
+                                             for lo, hi in ranges),
+                                       dtype=np.float32)
+                   for _ in range(PAD_B)]
+            for ndim, ranges in PAD_RANGES.items()}
+
+
+def padding_leg(ndim, xs, kw, dev) -> dict:
+    """One Padding call three ways -- numpy inputs to the CPU and to the
+    card, CUDA inputs packed on the card -- bitwise against each other,
+    UnPadding back to every input, then host-clock medians: bucketing +
+    pack (device="cpu"), the transfer of its result, the whole call to the
+    card, the call on CUDA inputs, and the oracle (origin) to the card."""
+    unpad = getattr(ops, f"UnPadding{ndim}D")
+    group = kw.get("group", 1)
+
+    def call(items, device, mod=ops):
+        extra = ({"rng": np.random.default_rng(SEED)}
+                 if kw.get("group_mode") == "sample" else {})
+        return getattr(mod, f"Padding{ndim}D")(list(items), device=device,
+                                               **kw, **extra)
+
+    on_card = [torch.from_numpy(a).to(dev) for a in xs]
+    torch.cuda.synchronize()
+    want = call(xs, "cpu")
+    check_padded(f"pad{ndim}d{kw} numpy->cuda", call(xs, dev), want, group)
+    got = call(on_card, dev)
+    check_padded(f"pad{ndim}d{kw} cuda->cuda", got, want, group)
+    padded, shapes = (list(got[0]), list(got[2])) if group > 1 else \
+        (got[0], got[2])
+    order = sorted(range(len(xs)), key=lambda i: xs[i].size) \
+        if group > 1 else range(len(xs))
+    back = unpad(padded, shapes)
+    if not all(bitwise_equal(b, torch.from_numpy(xs[i]))
+               for b, i in zip(back, order)) or len(back) != len(xs):
+        raise AssertionError(f"pad{ndim}d{kw}: UnPadding does not give back "
+                             f"the inputs")
+    batches = [want[0]] if group == 1 else list(want[0])
+    tensors = batches + ([want[1]] if group == 1 else list(want[1]))
+    pad_elems = sum(t.numel() for t in batches)
+    return {"buckets": len(got[0]) if group > 1 else 1,
+            "padded_elems": pad_elems,
+            "pad_share": 1 - sum(a.size for a in xs) / pad_elems,
+            "bucket_pack_ms": host_ms(lambda: call(xs, "cpu"), 7),
+            "transfer_ms": host_ms(lambda: [t.to(dev) for t in tensors], 7),
+            "to_card_ms": host_ms(lambda: call(xs, dev), 7),
+            "card_inputs_ms": host_ms(lambda: call(on_card, dev), 7),
+            "origin_to_card_ms": host_ms(lambda: call(xs, dev, origin), 7)}
+
+
+def data_trajectories(rng) -> list:
+    """The actor-learner's trajectories (obs, action, reward, behaviour
+    logits at obs 16, 4 actions) with a ragged float32 and int32 field."""
+    f = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    out = []
+    for _ in range(2 * DATA_B):
+        L = int(rng.integers(DATA_T // 2, DATA_T + 1))
+        out.append({"obs": f(DATA_T + 1, 16),
+                    "action": rng.integers(0, 4, DATA_T),
+                    "reward": f(DATA_T),
+                    "behaviour_logits": f(DATA_T, 4),
+                    "ragged_f32": f(L, 3),
+                    "ragged_i32": rng.integers(0, 9, L).astype(np.int32)})
+    return out
+
+
+def data_leg(rng, dev) -> dict:
+    """stack_trajectories and TrajectoryBuffer.sample_batch (FIFO and
+    replay) on the card against the CPU, bitwise; host-clock medians."""
+    data = hostdata_modules().data
+    trajs = data_trajectories(rng)
+    buffers = {}
+    for device in (dev, "cpu"):
+        buf = data.TrajectoryBuffer(capacity=4 * DATA_B)
+        for t in trajs:
+            buf.add(t)
+        buffers[device] = buf
+    out = {}
+    for kw in ({"pop": True}, {"pop": False}):
+        batches = {device: buf.sample_batch(
+            DATA_B, rng=np.random.default_rng(SEED), timeout=1.0,
+            device=device, **kw) for device, buf in buffers.items()}
+        card, cpu = batches[dev], batches["cpu"]
+        if list(card) != list(cpu) or not all(
+                bitwise_equal(card[k], cpu[k]) for k in cpu):
+            raise AssertionError(f"sample_batch {kw}: the card's batch is "
+                                 f"not the CPU's")
+        if card["ragged_f32_mask"].dtype != torch.bool or \
+                card["ragged_i32"].dtype != torch.int32:
+            raise AssertionError("sample_batch: dtypes not numpy's")
+        out["fields"] = {k: [str(v.dtype), list(v.shape)]
+                         for k, v in card.items()}
+    buf = buffers[dev]
+    out["stack_ms"] = host_ms(
+        lambda: data.stack_trajectories(trajs[:DATA_B]), 7)
+    out["sample_batch_replay_ms"] = host_ms(lambda: buf.sample_batch(
+        DATA_B, pop=False, rng=np.random.default_rng(SEED), device=dev), 7)
+    return out
+
+
+def episodic_setup(dev):
+    p = hostdata_modules().episodic.init_params(torch.Generator().manual_seed(SEED),
+                             EPISODIC_CFG["obs_dim"], EPISODIC_CFG["hidden"],
+                             EPISODIC_CFG["actions"], dev)
+    return p, torch.optim.Adam(p.parameters(), lr=EPISODIC_LR)
+
+
+def episodic_episodes(rng, steps) -> list:
+    c = EPISODIC_CFG
+    return [hostdata_modules().episodic.make_episodes(rng, c["n_eps"], c["obs_dim"],
+                                   c["actions"], c["l_min"], c["l_max"])
+            for _ in range(steps)]
+
+
+def episodic_step(p, opt, episodes, dev):
+    c = EPISODIC_CFG
+    return hostdata_modules().episodic.train_step(p, opt, episodes, c["group"], c["gamma"],
+                               c["lambda_"], dev)
+
+
+def phase_hostdata(dev, kernel_rows) -> dict:
+    m = hostdata_modules()
+    rng = np.random.default_rng(SEED + 24)
+    result = {"padding": {}}
+    for ndim, xs in padding_inputs(rng).items():
+        for tag, kw in PAD_MODES.items():
+            result["padding"][f"pad{ndim}d{tag}"] = padding_leg(ndim, xs, kw,
+                                                                dev)
+    result["data"] = data_leg(rng, dev)
+    episodes = episodic_episodes(rng, EPISODIC_STEPS)
+    fwd, (e_params, e_obs) = m.entry.entry(device=dev)
+    step0, losses, stamps = {}, [], []
+
+    def on_step(i, params, batch, metrics):
+        stamps.append(time.perf_counter())
+        if i == 0:
+            step0.update(
+                batch=models.TrainBatch(*(t.cpu() for t in batch)),
+                metrics={k: v.cpu() for k, v in metrics.items()},
+                grads={k: q.grad.cpu() for k, q in params.named_parameters()},
+                after=_cpu_copy(dict(params.named_parameters())))
+        losses.append({k: float(v) for k, v in metrics.items()})
+
+    # The counted run: entry's forward, the episodic steps, the learner.
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        e_out = fwd(e_params, e_obs)
+    p, opt = episodic_setup(dev)
+    ep_log, starts = [], []
+    for eps in episodes:
+        starts.append((_cpu_copy(p.state_dict()),
+                       copy.deepcopy(opt.state_dict())))
+        ep_log.append(episodic_step(p, opt, eps, dev))
+        starts[-1] = (*starts[-1], _cpu_copy(p.state_dict()))
+    ep_launches = kernels.launch_counts()
+    learner_params = m.learner.run(
+        steps=LEARNER_STEPS, device=dev, on_step=on_step)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_launched("hostdata", launches, HOSTDATA_KERNELS)
+    buckets = sum(len(sizes) for _, _, sizes in ep_log)
+    for name in ("lambda_returns", "linear_scan"):
+        if ep_launches[name] != buckets:
+            raise AssertionError(f"episodic: {name} launched "
+                                 f"{ep_launches[name]} times for {buckets} "
+                                 f"buckets")
+    result.update({"launches": launches,
+                   "episodic_launches": ep_launches,
+                   "tolerance": {"rtol": RTOL, "atol": ATOL,
+                                 "grads_atol_rel_to_max": GRAD_ATOL_REL},
+                   "check_vs_cpu": {}})
+
+    cpu = torch.device("cpu")
+    c_fwd, (c_params, c_obs) = m.entry.entry(device=cpu)
+    with torch.no_grad():
+        result["check_vs_cpu"]["entry forward"] = compare(
+            "entry forward", e_out, c_fwd(c_params, c_obs))
+
+    # Each CPU episodic step starts from the card's parameters and Adam
+    # state before that step, as phase upgo holds the AlphaStar steps.
+    ref_p, ref_opt = episodic_setup(cpu)
+    result["episodic_params_vs_cpu"] = {}
+    for i, ((loss, grads, sizes), (p_before, opt_before, p_after)) in \
+            enumerate(zip(ep_log, starts)):
+        ref_p.load_state_dict(p_before)
+        ref_opt.load_state_dict(opt_before)
+        r_loss, r_grads, r_sizes = episodic_step(ref_p, ref_opt,
+                                                 episodes[i], cpu)
+        if sizes != r_sizes:
+            raise AssertionError(f"episodic step {i}: buckets {sizes} vs "
+                                 f"{r_sizes}")
+        result["check_vs_cpu"][f"episodic step {i}"] = compare(
+            f"episodic step {i} loss", [torch.tensor(loss)],
+            [torch.tensor(r_loss)])
+        for k in r_grads:
+            compare(f"episodic step {i} grad {k}", [grads[k]], [r_grads[k]],
+                    atol=0.0, atol_rel=GRAD_ATOL_REL)
+        result["episodic_params_vs_cpu"][f"step {i}"] = check_adam_params(
+            f"episodic step {i}", p_after, dict(ref_p.named_parameters()),
+            [r_grads], EPISODIC_LR, 1)
+    result["episodic_steps"] = [{"loss": loss, "buckets_TxB": sizes}
+                                for loss, _, sizes in ep_log]
+
+    # The learner's step 0 on the CPU, from the same initial parameters.
+    ref_params, _, ref_train = m.learner.init_learner(cpu)
+    ref_metrics = ref_train(ref_params, step0["batch"])
+    result["check_vs_cpu"]["learner step 0"] = compare(
+        "learner step 0 metrics", list(step0["metrics"].values()),
+        list(ref_metrics.values()))
+    ref_grads = {k: q.grad for k, q in ref_params.named_parameters()}
+    for k in ref_grads:
+        compare(f"learner step 0 grad {k}", [step0["grads"][k]],
+                [ref_grads[k]], atol=0.0, atol_rel=GRAD_ATOL_REL)
+    result["learner_params_vs_cpu"] = check_adam_params(
+        "learner step 0", step0["after"],
+        dict(ref_params.named_parameters()), [ref_grads], m.learner.LR, 1)
+    if len(losses) != LEARNER_STEPS or not all(
+            np.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"learner: losses {losses}")
+    result["learner_steps"] = losses
+    result["learner_layer_route"] = network.layer_route(
+        DATA_B, m.learner.CFG.hidden_size, torch.float32, True,
+        torch.cuda.get_device_properties(dev).shared_memory_per_block_optin)
+    result["ms_per_learner_loop_step"] = statistics.median(
+        (b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+
+    # The timed calls: a learner train step on step 0's batch (its Adam
+    # state also goes through the checkpoint), an episodic step.
+    params, opt, train = m.learner.init_learner(dev)
+    batch = models.TrainBatch(*(t.to(dev) for t in step0["batch"]))
+    result["ms_per_learner_step_T16_B32"] = host_ms(
+        lambda: train(params, batch), 7)
+    p, opt_e = episodic_setup(dev)
+    result["ms_per_episodic_step"] = host_ms(
+        lambda: episodic_step(p, opt_e, episodes[0], dev), 7)
+
+    # Checkpoint round trip of the card's parameters and Adam state.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "learner")
+        tree = {"params": params, "adam": opt.state_dict(),
+                "actor_learner_params": learner_params}
+        m.utils.save_pytree(path, tree)
+        like = {"params": m.learner.init_learner(dev)[0],
+                "adam": opt.state_dict(),
+                "actor_learner_params": m.learner.init_learner(dev)[0]}
+        loaded = m.utils.load_pytree(path, like)
+    got, _ = m.checkpoint.tree_flatten(loaded)
+    want, _ = m.checkpoint.tree_flatten(tree)
+    if len(got) != len(want) or not all(
+            bitwise_equal(g, w) and g.device == w.device
+            if isinstance(w, torch.Tensor) else g == w
+            for g, w in zip(got, want)):
+        raise AssertionError("checkpoint: the loaded tree differs")
+    result["checkpoint_leaves"] = len(got)
+
+    # bench_fn and roofline on ops.gae, beside phase kernels' GAE row.
+    value = torch.from_numpy(rng.standard_normal(
+        (BENCH_T + 1, BENCH_B), dtype=np.float32)).to(dev)
+    reward = torch.from_numpy(rng.standard_normal(
+        (BENCH_T, BENCH_B), dtype=np.float32)).to(dev)
+    seconds = m.utils.bench_fn(lambda v, r: ops.gae(ops.gae_data(v, r)),
+                               value, reward)
+    nbytes = scan_bounds(BENCH_T, BENCH_B)["gae"][0]
+    roof = m.utils.roofline(seconds, nbytes)
+    row = kernel_rows.get("gae T=1024", {})
+    result["bench_fn_gae_T1024_B4096"] = {
+        "ms": seconds * 1e3, "roofline": str(roof),
+        "sol_fraction": roof.sol_fraction,
+        "kernels_row_ms_cold": row.get("ms"),
+        "kernels_row_ms_l2_warm": row.get("ms_l2_warm")}
+    return result
+
+
+def hostdata_timed_calls(dev):
+    """The two end-to-end calls of phase hostdata that are profiled: one
+    episodic A2C step and one learner train step, on inputs of their own."""
+    rng = np.random.default_rng(SEED + 25)
+    episodes = episodic_episodes(rng, 1)[0]
+    p, opt = episodic_setup(dev)
+    params, _, train = hostdata_modules().learner.init_learner(dev)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(
+        s, dtype=np.float32)).to(dev)
+    batch = models.TrainBatch(
+        f(DATA_T + 1, DATA_B, 16),
+        torch.from_numpy(rng.integers(0, 4, (DATA_T, DATA_B))).to(dev),
+        f(DATA_T, DATA_B), f(DATA_T, DATA_B, 4))
+    return {"episodic_a2c_step": lambda: episodic_step(p, opt, episodes,
+                                                       dev),
+            "learner_step_T16_B32": lambda: train(params, batch)}
+
+
+# ----------------------------------------------------------- phase 11 ----
+
 def profile_one(fn) -> dict:
     """torch.profiler over one call of fn after a warm-up call: device busy
     time (the sum of kernel and copy times on the one stream), the wall time
@@ -2550,8 +2937,8 @@ def phase_profile(dev) -> dict:
     B=256 and at B=32 (V1) in float32 and in bf16, the three on-policy
     calls and the weighted ops.td_lambda_error (kernel 8's launch), the
     UPGO loss, the AlphaStar train step, the four scan entry points of
-    phase upgo (kernel 6's launches), and phase nstep's five TD ops and
-    R2D2 train step."""
+    phase upgo (kernel 6's launches), phase nstep's five TD ops and R2D2
+    train step, and phase hostdata's episodic A2C step and learner step."""
     _, params, obs, serve_obs, _, _, _, big_x = slice_inputs(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
@@ -2605,6 +2992,11 @@ def phase_profile(dev) -> dict:
         for name, fn in nstep_timed_calls(
                 x, r2d2_arrays(rng, **R2D2_CFG),
                 r2d2_batches(rng, 1, **R2D2_CFG), dev).items():
+            out[name] = profile_one(fn)
+    # Phase hostdata's episodic A2C step and learner step, where the
+    # checkout has the examples.
+    if importlib.util.find_spec("di_hpc_tpu_torch.examples") is not None:
+        for name, fn in hostdata_timed_calls(dev).items():
             out[name] = profile_one(fn)
     return out
 
@@ -2769,6 +3161,8 @@ def main() -> int:
                      ("onpolicy", lambda: phase_onpolicy(dev)),
                      ("upgo", lambda: phase_upgo(dev)),
                      ("nstep", lambda: phase_nstep(dev)),
+                     ("hostdata", lambda: phase_hostdata(
+                         dev, results["kernels"])),
                      ("profile", lambda: phase_profile(dev))):
         start = time.perf_counter()
         try:
@@ -2783,14 +3177,15 @@ def main() -> int:
     rows = results["kernels"]
     # Launches on each counted path run: the slice, the train legs, the bf16
     # path, the on-policy path, the UPGO/AlphaStar path, the TD family and
-    # the R2D2 learner.
+    # the R2D2 learner, the host data plane with its two examples.
     by_path = {"slice": results["slice"]["launches"],
                **{f"train {leg}": results["train"][leg]["launches"]
                   for leg in results["train"] if leg.startswith("B=")},
                "bf16": results["bf16"]["launches"],
                "onpolicy": results["onpolicy"]["launches"],
                "upgo": results["upgo"]["launches"],
-               "nstep": results["nstep"]["launches"]}
+               "nstep": results["nstep"]["launches"],
+               "hostdata": results["hostdata"]["launches"]}
     check_launched("all paths", {name: sum(c[name] for c in by_path.values())
                                  for name, *_ in KERNELS},
                    [name for name, *_ in KERNELS])

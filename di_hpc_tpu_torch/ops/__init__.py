@@ -1,5 +1,5 @@
-"""Fused RL ops on the port's kernels, the counterpart of di_hpc_tpu.ops
-for the ops ported so far."""
+"""Fused RL ops on the port's kernels and ragged-batch padding, the
+counterpart of di_hpc_tpu.ops."""
 
 from .scan import (
     gae_denominators,
@@ -44,3 +44,13 @@ from .ppo import (
 )
 from .upgo import UPGO, upgo_loss, upgo_returns
 from .vtrace import VTrace, vtrace_data, vtrace_error, vtrace_loss
+from .padding import (
+    Padding1D,
+    Padding2D,
+    Padding3D,
+    UnPadding1D,
+    UnPadding2D,
+    UnPadding3D,
+    oracle_split_group,
+    sample_split_group,
+)

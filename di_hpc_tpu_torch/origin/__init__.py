@@ -1,5 +1,5 @@
 """Plain-PyTorch oracles (the ground truth the fused ops match), the
-counterpart of di_hpc_tpu.origin for the modules ported so far."""
+counterpart of di_hpc_tpu.origin."""
 
 from .gae import gae, gae_data
 from .ppo import (
@@ -17,6 +17,15 @@ from .rnn import (
     layer_norm,
     lstm,
     sequence_mask,
+)
+from .padding import (
+    Padding1D,
+    Padding2D,
+    Padding3D,
+    UnPadding1D,
+    UnPadding2D,
+    UnPadding3D,
+    oracle_split_group,
 )
 from .scatter_connection import ScatterConnection, scatter_connection
 from .td import (

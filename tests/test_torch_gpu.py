@@ -16,7 +16,11 @@ exact ties and tilings; the batch-bound TD family (ops.q_nstep_td_error and
 its kin) on the card against the same calls on the CPU; and
 `network.lstm_fused` with a gradient where the kernels cannot take the
 layer (H % 4 != 0, widths past each shared-memory plan, float16), against
-the same call on the CPU, with the route each layer took.
+the same call on the CPU, with the route each layer took; and the host data
+plane: ragged padding from numpy and from CUDA inputs bitwise equal to the
+CPU's, `TrajectoryBuffer.sample_batch` on the card equal to the CPU's, one
+episodic A2C step (kernels 8 and 6 once per bucket) against the CPU, and a
+checkpoint round trip of card parameters and Adam state.
 
 Every test here is marked `gpu` and skips without a card (decided in the
 `cuda` fixture, never at import).  This file imports no JAX, so it also
@@ -1691,3 +1695,89 @@ def test_lstm_fused_routes_what_the_kernels_cannot_take(cuda, case):
             torch.testing.assert_close(g, w, rtol=0, atol=rel * scale,
                                        equal_nan=True,
                                        msg=f"{case} output {i}")
+
+
+# ---------------------------------------------------------------------------
+# The host data plane on the card: padding, sample_batch, the episodic A2C
+# step and the checkpoint round trip.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("tag", list(chip_smoke.PAD_MODES))
+def test_padding_on_the_card_equals_the_cpu_bitwise(cuda, ndim, tag):
+    """numpy inputs (host pack, one transfer) and CUDA inputs (packed on
+    the card) give the CPU's batches, masks and shapes bit for bit, and
+    UnPadding gives back every input (chip_smoke.padding_leg)."""
+    rng = np.random.default_rng(60 + ndim)
+    xs = [rng.standard_normal(tuple(int(d) for d in rng.integers(2, 9, ndim)),
+                              dtype=np.float32) for _ in range(23)]
+    leg = chip_smoke.padding_leg(ndim, xs, chip_smoke.PAD_MODES[tag], cuda)
+    assert leg["buckets"] >= 1
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float64])
+def test_padding_of_other_dtypes_on_the_card_equals_the_cpu(cuda, dtype):
+    rng = np.random.default_rng(70)
+    xs = [(10 * rng.standard_normal(int(n))).astype(dtype)
+          for n in rng.integers(2, 30, 17)]
+    want = ops.Padding1D(xs, group=3, group_mode="oracle", device="cpu")
+    for items in (xs, [torch.from_numpy(a).to(cuda) for a in xs]):
+        got = ops.Padding1D(items, group=3, group_mode="oracle",
+                            device=cuda)
+        chip_smoke.check_padded("padding", got, want, 3)
+
+
+def test_sample_batch_on_the_card_equals_the_cpu(cuda):
+    out = chip_smoke.data_leg(np.random.default_rng(71), cuda)
+    assert out["fields"]["ragged_f32_mask"][0] == "torch.bool"
+
+
+def test_episodic_step_on_the_card_matches_the_cpu(cuda):
+    """One step of the episodic A2C: loss, gradients and the Adam update
+    against the same step on the CPU; one launch of kernels 8 and 6 per
+    bucket."""
+    episodes = chip_smoke.episodic_episodes(np.random.default_rng(72), 1)[0]
+    cpu = torch.device("cpu")
+    p, opt = chip_smoke.episodic_setup(cuda)
+    ref_p, ref_opt = chip_smoke.episodic_setup(cpu)
+    kernels.reset_launch_counts()
+    loss, grads, sizes = chip_smoke.episodic_step(p, opt, episodes, cuda)
+    counts = kernels.launch_counts()
+    assert counts["lambda_returns"] == counts["linear_scan"] == len(sizes)
+    r_loss, r_grads, r_sizes = chip_smoke.episodic_step(ref_p, ref_opt,
+                                                        episodes, cpu)
+    assert sizes == r_sizes
+    np.testing.assert_allclose(loss, r_loss, rtol=RTOL, atol=ATOL)
+    for k in r_grads:
+        chip_smoke.compare(k, [grads[k]], [r_grads[k]], atol=0.0,
+                           atol_rel=chip_smoke.GRAD_ATOL_REL)
+    chip_smoke.check_adam_params("episodic", dict(p.named_parameters()),
+                                 dict(ref_p.named_parameters()), [r_grads],
+                                 chip_smoke.EPISODIC_LR, 1)
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    from di_hpc_tpu_torch import utils
+    from di_hpc_tpu_torch.examples import impala_actor_learner
+    from di_hpc_tpu_torch.utils.checkpoint import tree_flatten
+
+    params, opt, train = impala_actor_learner.init_learner(cuda)
+    rng = np.random.default_rng(73)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(
+        s, dtype=np.float32)).to(cuda)
+    train(params, models.TrainBatch(
+        f(17, 8, 16), torch.from_numpy(rng.integers(0, 4, (16, 8))).to(cuda),
+        f(16, 8), f(16, 8, 4)))
+    tree = (params, opt.state_dict())
+    utils.save_pytree(tmp_path / "ckpt", tree)
+    loaded = utils.load_pytree(
+        tmp_path / "ckpt",
+        (impala_actor_learner.init_learner(cuda)[0], opt.state_dict()))
+    got, _ = tree_flatten(loaded)
+    want, _ = tree_flatten(tree)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, torch.Tensor):
+            assert g.device == w.device and chip_smoke.bitwise_equal(g, w)
+        else:
+            assert g == w

@@ -45,7 +45,10 @@ def test_package_imports_without_jax_or_the_jax_package():
                 "origin.td", "origin.ppo", "kernels.linear_scan", "ops.upgo",
                 "origin.upgo", "origin.scatter_connection",
                 "network.scatter_connection", "models.actor_critic",
-                "models.entity_selection"):
+                "models.entity_selection", "ops.padding", "origin.padding",
+                "data", "utils.native", "utils.checkpoint",
+                "utils.profiling", "entry", "examples.episodic_a2c_padding",
+                "examples.impala_actor_learner"):
         assert "di_hpc_tpu_torch." + sub in result["imported"]
 
 
