@@ -4,7 +4,13 @@
     python3 chip_smoke.py              # no arguments; needs one CUDA card
     python3 chip_smoke.py --digests    # only the LSTM and scan kernels'
                                        # output digests and ptxas lines
-    python3 chip_smoke.py --profile    # only phase 11 (profile)
+    python3 chip_smoke.py --profile    # only phase 12 (profile)
+    python3 chip_smoke.py --parallel   # only phases 1, 2 and 11; on as many
+                                       # cards as the world has ranks, one
+                                       # rank per card over NCCL
+    python3 chip_smoke.py --parallel-worker DIR RANK WORLD
+                                       # one rank of phase 11, which
+                                       # spawns them
 
 Phases, each printing one JSON line (`{"phase": ...}`):
 
@@ -170,7 +176,10 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 oracle's.  `stack_trajectories` and `TrajectoryBuffer.
                 sample_batch` (FIFO and replay) at the actor-learner's batch
                 (T=16, B=32, with a ragged float32 and int32 field), the
-                card's batch equal to the CPU's.  Then, counts set to 0 just
+                card's batch equal to the CPU's; the same trajectories with
+                float64 fields and int64 actions arrive float32 and int32,
+                as JAX's transfer gives them, and `ops.vtrace_error` on
+                them launches kernels 2 and 3.  Then, counts set to 0 just
                 before and read just after: `entry()`'s forward, 3 steps of
                 the episodic A2C of examples/episodic_a2c_padding.py (its
                 configuration: 48 episodes of length 8-64, group 3; kernels
@@ -184,7 +193,31 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 learner and episodic step; `utils.bench_fn` and
                 `utils.roofline` on `ops.gae` at T=1024, B=4096 beside phase
                 kernels' GAE row.
- 11. profile -- torch.profiler over one more run of each of the timed calls
+ 11. parallel -- the parallel layer (di_hpc_tpu_torch.parallel) in a gloo
+                world of 4 processes on the one card, each on cuda:0,
+                spawned with a deadline (PAR_TIMEOUT_S) that kills the
+                world: `linear_recurrence_{reverse,forward}_sharded` on the
+                meshes {data: 4} (time sharded over it), {time: 4} and
+                {time: 2, data: 2} (batch over data), `gae_`, `lambda_returns_`,
+                `td_lambda_error_` (unit and (B,) weight), `upgo_loss_` and
+                `vtrace_error_time_sharded` (with the policy loss's gradient
+                in the target logits) on {time: 2, data: 2}, all at T=1024,
+                B=4096 (N=32), and `data_parallel` of `ops.vtrace_error`
+                (forward and backward, kernels 2 and 3 on each rank's
+                batch shard), `ops.ppo_error` and `ops.q_nstep_td_error`
+                (B=4096, N=10, nstep 3) on {data: 4}.  Each rank runs the
+                unsharded ops on the card, then every sharded call with
+                the counts set to 0 just before and read just after (kernel
+                6 for each local time chunk), holds each against the
+                unsharded op at RTOL/ATOL, each gradient block by block
+                over its mesh's shards at RTOL and PAR_GRAD_REL of the
+                block's max|want| (every block nonzero), and prints its
+                launches, checks,
+                digests and host-clock medians on one line; every rank's
+                results must equal rank 0's bit for bit.  The host clocks
+                are four processes sharing one card, with every collective
+                staged through the host: not a scaling figure.
+ 12. profile -- torch.profiler over one more run of each of the timed calls
                 (forward, serving loop, V-trace, train step, the three
                 on-policy calls, the UPGO loss, the AlphaStar train step and
                 the bf16 train step), of the f32 and bf16 train steps at
@@ -201,7 +234,7 @@ backward's inputs from the plain forward) and their ptxas lines, and of the
 scan kernels' (2, 3, 6-12) outputs at T=1024, B=4096 and at the ragged
 T=1000, B=4100: run in two checkouts, they show whether a change left those
 kernels bitwise the same.
-With `--profile` it prints only phase 11's line, which runs in an older
+With `--profile` it prints only phase 12's line, which runs in an older
 checkout too.  Any
 failure prints its phase
 with `"ok": false` and exits 1; no card (or no port beside this script)
@@ -211,6 +244,7 @@ exits non-zero before any result.
 from __future__ import annotations
 
 import copy
+import hashlib
 import importlib.util
 import json
 import os
@@ -350,6 +384,16 @@ def host_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - start) * 1e3)
     return statistics.median(times)
+
+
+def sha256(tensors) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                      .cpu().numpy().tobytes())
+    return digest.hexdigest()
 
 
 def compare(name, got, want, rtol=RTOL, atol=ATOL, atol_rel=0.0) -> dict:
@@ -1918,7 +1962,9 @@ def phase_onpolicy(dev) -> dict:
     ref = run_onpolicy_ops(to_dev(x_np, cpu))
     ref_log, ref_p = ppo_train(ppo_np, rollouts_np, cpu)
     result = {"launches": launches,
-              "tolerance": {"rtol": RTOL, "atol": ATOL},
+              "tolerance": {"rtol": RTOL, "atol": ATOL,
+                          "gradient_blocks": {"rtol": RTOL, "atol": 0.0,
+                                              "atol_rel": PAR_GRAD_REL}},
               "check_vs_cpu": {k: compare(f"onpolicy {k}", [out[k]],
                                           [ref[k]]) for k in ref}}
     for i, ((m, g), (rm, rg)) in enumerate(zip(log, ref_log)):
@@ -2691,16 +2737,52 @@ def data_leg(rng, dev) -> dict:
             raise AssertionError(f"sample_batch {kw}: the card's batch is "
                                  f"not the CPU's")
         if card["ragged_f32_mask"].dtype != torch.bool or \
-                card["ragged_i32"].dtype != torch.int32:
-            raise AssertionError("sample_batch: dtypes not numpy's")
+                card["ragged_i32"].dtype != torch.int32 or \
+                card["action"].dtype != torch.int32:
+            raise AssertionError("sample_batch: dtypes not JAX's")
         out["fields"] = {k: [str(v.dtype), list(v.shape)]
                          for k, v in card.items()}
+    out["64_bit"] = data_leg_64_bit(data, trajs, dev)
     buf = buffers[dev]
     out["stack_ms"] = host_ms(
         lambda: data.stack_trajectories(trajs[:DATA_B]), 7)
     out["sample_batch_replay_ms"] = host_ms(lambda: buf.sample_batch(
         DATA_B, pop=False, rng=np.random.default_rng(SEED), device=dev), 7)
     return out
+
+
+def data_leg_64_bit(data, trajs, dev) -> dict:
+    """The trajectories with float64 fields and int64 actions: the card's
+    batch arrives float32 and int32, as JAX's transfer gives it, and
+    ops.vtrace_error on it (target logits = behaviour logits + 0.1, value
+    = obs[..., 0]) with its gradient launches kernels 2 and 3, counted on
+    their own."""
+    buf = data.TrajectoryBuffer(capacity=DATA_B)
+    for t in trajs[:DATA_B]:
+        buf.add({k: v.astype(np.float64) if v.dtype == np.float32
+                 else v.astype(np.int64) for k, v in t.items()})
+    batch = buf.sample_batch(DATA_B, timeout=1.0, device=dev)
+    dtypes = {k: str(v.dtype) for k, v in batch.items()}
+    want = {k: "torch.bool" if k.endswith("_mask") else "torch.int32"
+            if k in ("action", "ragged_i32") else "torch.float32"
+            for k in batch}
+    if dtypes != want:
+        raise AssertionError(f"64-bit sample_batch: dtypes {dtypes}, not "
+                             f"JAX's {want}")
+    target = (batch["behaviour_logits"] + 0.1).requires_grad_()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses = ops.vtrace_error(ops.vtrace_data(
+        target, batch["behaviour_logits"], batch["action"],
+        batch["obs"][..., 0], batch["reward"], None))
+    (losses.policy_loss + losses.value_loss).backward()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_launched("64-bit sample_batch -> ops.vtrace_error", launches,
+                   ("vtrace_losses", "vtrace_returns_adv"))
+    return {"dtypes": dtypes,
+            "vtrace_launches": {n: launches[n] for n in (
+                "vtrace_losses", "vtrace_returns_adv")}}
 
 
 def episodic_setup(dev):
@@ -2897,6 +2979,282 @@ def hostdata_timed_calls(dev):
 
 # ----------------------------------------------------------- phase 11 ----
 
+# A gloo world of 4 processes on the one card, each on cuda:0 (NCCL refuses
+# two ranks on one card), at the full width of phase kernels' V-trace and
+# scan rows.
+PAR_WORLD = 4
+PAR_T, PAR_B, PAR_N = 1024, 4096, 32
+PAR_MESHES = {"data4": {"data": 4}, "time4": {"time": 4},
+              "time2xdata2": {"time": 2, "data": 2}}
+# The axes each mesh's scans shard time and batch over: the data mesh's one
+# axis takes time.
+PAR_SCAN_AXES = {"data4": ("data", None), "time4": ("time", None),
+                 "time2xdata2": ("time", "data")}
+# tests/test_parallel.py's PPO and n-step TD shapes, at B=4096.
+PAR_PPO = {"B": 4096, "N": 10, "nstep": 3}
+PAR_KERNELS = ("linear_scan", "vtrace_losses", "vtrace_returns_adv")
+# The calls whose second tensor is a gradient in the (T, B, N) target
+# logits, with the (time, batch) shards of their mesh.  A gradient entry is
+# about |adv| / (T * B), far below ATOL, so each (time, batch) block is held
+# at PAR_GRAD_REL of its own max|want| and must not be all zeros: a
+# gradient right in rank 0's rows only, or zero, fails.
+PAR_GRADS = {"vtrace_error_time_sharded": (2, 2),
+             "data_parallel(ops.vtrace_error)": (1, 4)}
+PAR_GRAD_REL = 1e-5
+PAR_REPS = 5
+PAR_TAG = "PARALLEL_RANK "
+# A world that has not finished by then is killed and the phase fails.
+PAR_TIMEOUT_S = 480
+
+
+def spawn_world(argv, world, timeout, env=None) -> list:
+    """Runs `python3 *argv RANK WORLD` for every rank (in `env`, default
+    this process's) and returns each rank's output.  Each rank writes to a
+    file of its own (a pipe left unread could stall a rank in a
+    collective), and all are waited on under one deadline.  Every process
+    still running at the deadline is killed; a rank that fails, or a
+    deadline that passes, raises with the tails of the ranks' outputs."""
+    with tempfile.TemporaryDirectory() as logs:
+        files = [open(os.path.join(logs, f"rank{r}.log"), "w+")
+                 for r in range(world)]
+        procs = [subprocess.Popen([sys.executable, *argv, str(r),
+                                   str(world)], cwd=ROOT, env=env,
+                                  stdout=files[r], stderr=subprocess.STDOUT)
+                 for r in range(world)]
+        deadline = time.monotonic() + timeout
+        late = False
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            late = True
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            outs = []
+            for f in files:
+                f.seek(0)
+                outs.append(f.read())
+                f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if late or bad:
+        why = f"passed its {timeout} s deadline" if late else "failed"
+        raise RuntimeError(f"a world of {world}: {why}; ranks {bad} "
+                           f"ended non-zero:\n" + "\n".join(
+                               f"--- rank {r}:\n{outs[r][-4000:]}"
+                               for r in range(world) if late or r in bad))
+    return outs
+
+
+def parallel_inputs(dev) -> dict:
+    """The phase's global tensors, made on the card from one seed: the same
+    bits on every rank."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(s, generator=g,
+                                                      device=dev)
+    i = lambda k, *s: torch.randint(0, k, s, generator=g, device=dev)
+    T, B, N = PAR_T, PAR_B, PAR_N
+    Bp, Np = PAR_PPO["B"], PAR_PPO["N"]
+    return {"a": n(T, B), "b": u(-0.99, 0.99, T, B), "value": n(T + 1, B),
+            "reward": n(T, B), "weight": u(0.3, 2.0, B), "to": n(T, B, N),
+            "bo": n(T, B, N), "act": i(N, T, B),
+            "rhos": torch.exp(0.2 * n(T, B)),
+            "ln": n(Bp, Np), "lo": n(Bp, Np), "pact": i(Np, Bp),
+            "vn": n(Bp), "vo": n(Bp), "adv": n(Bp), "ret": n(Bp),
+            "q": n(Bp, Np), "nq": n(Bp, Np), "qrew": n(PAR_PPO["nstep"], Bp),
+            "done": (u(0.0, 1.0, Bp) > 0.5).float()}
+
+
+def vtrace_with_grad(fn, x, total: bool) -> tuple:
+    """fn's V-trace losses on x and the gradient in the target logits of
+    the policy loss (+ the value loss when `total`)."""
+    to = x["to"].detach().requires_grad_()
+    losses = fn(ops.vtrace_data(to, x["bo"], x["act"], x["value"],
+                                x["reward"], None))
+    loss = losses.policy_loss + (losses.value_loss if total else 0.0)
+    (grad,) = torch.autograd.grad(loss, to)
+    return torch.stack(tuple(losses)).detach(), grad
+
+
+def parallel_calls(P, x, meshes) -> dict:
+    """name -> (the sharded call, the unsharded op), each giving a tuple of
+    tensors."""
+    calls = {}
+    for tag, mesh in meshes.items():
+        t_ax, b_ax = PAR_SCAN_AXES[tag]
+        for way, sharded, plain in (
+                ("reverse", P.linear_recurrence_reverse_sharded,
+                 ops.linear_recurrence_reverse),
+                ("forward", P.linear_recurrence_forward_sharded,
+                 ops.linear_recurrence_forward)):
+            calls[f"linear_recurrence_{way}_sharded {tag}"] = (
+                lambda s=sharded, m=mesh, t=t_ax, b=b_ax: (s(
+                    x["a"], x["b"], m, time_axis=t, batch_axis=b),),
+                lambda p=plain: (p(x["a"], x["b"]),))
+    m, kw = meshes["time2xdata2"], {"batch_axis": "data"}
+    v, r, w = x["value"], x["reward"], x["weight"]
+    calls.update({
+        "gae_time_sharded": (
+            lambda: (P.gae_time_sharded(v, r, m, **kw),),
+            lambda: (ops.gae(ops.gae_data(v, r)),)),
+        "lambda_returns_time_sharded": (
+            lambda: (P.lambda_returns_time_sharded(v, r, m, 0.9, 0.8, **kw),),
+            lambda: (ops.generalized_lambda_returns(v, r, 0.9, 0.8),)),
+        "td_lambda_error_time_sharded": (
+            lambda: (P.td_lambda_error_time_sharded(v, r, None, m, **kw),),
+            lambda: (ops.td_lambda_error(ops.td_lambda_data(v, r, None)),)),
+        "td_lambda_error_time_sharded weighted": (
+            lambda: (P.td_lambda_error_time_sharded(v, r, w, m, **kw),),
+            lambda: (ops.td_lambda_error(ops.td_lambda_data(v, r, w)),)),
+        "upgo_loss_time_sharded": (
+            lambda: (P.upgo_loss_time_sharded(x["to"], x["rhos"], x["act"],
+                                              r, v, m, **kw),),
+            lambda: (ops.upgo_loss(x["to"], x["rhos"], x["act"], r, v),)),
+        "vtrace_error_time_sharded": (
+            lambda: vtrace_with_grad(
+                lambda d: P.vtrace_error_time_sharded(d, m, **kw), x, False),
+            lambda: vtrace_with_grad(ops.vtrace_error, x, False))})
+    dm = meshes["data4"]
+    dp_vtrace = P.data_parallel(ops.vtrace_error, dm,
+                                ops.vtrace_data(1, 1, 1, 1, 1, None))
+    dp_ppo = P.data_parallel(ops.ppo_error, dm,
+                             ops.ppo_data(0, 0, 0, 0, 0, 0, 0, None))
+    dp_td = P.data_parallel(ops.q_nstep_td_error, dm,
+                            ops.q_nstep_td_data(0, 0, 0, 0, 1, 0, None))
+    ppo = ops.ppo_data(x["ln"], x["lo"], x["pact"], x["vn"], x["vo"],
+                       x["adv"], x["ret"], None)
+    td = ops.q_nstep_td_data(x["q"], x["nq"], x["pact"], x["pact"],
+                             x["qrew"], x["done"], None)
+    flat = lambda out: tuple(t for part in out for t in part)
+    calls.update({
+        "data_parallel(ops.vtrace_error)": (
+            lambda: vtrace_with_grad(dp_vtrace, x, True),
+            lambda: vtrace_with_grad(ops.vtrace_error, x, True)),
+        "data_parallel(ops.ppo_error)": (
+            lambda: flat(dp_ppo(ppo)), lambda: flat(ops.ppo_error(ppo))),
+        "data_parallel(ops.q_nstep_td_error)": (
+            lambda: tuple(dp_td(td, 0.95, PAR_PPO["nstep"])),
+            lambda: tuple(ops.q_nstep_td_error(td, 0.95, PAR_PPO["nstep"])))})
+    return calls
+
+
+def compare_grad_blocks(name, got, want, t_shards: int, b_shards: int
+                        ) -> dict:
+    """got against want block by block over `t_shards` x `b_shards` blocks
+    of dims 0 and 1, each at RTOL and PAR_GRAD_REL of the block's own
+    max|want|, no block all zeros; the worst block's errors."""
+    worst = None
+    for i, (g_t, w_t) in enumerate(zip(got.chunk(t_shards, 0),
+                                       want.chunk(t_shards, 0))):
+        for j, (g, w) in enumerate(zip(g_t.chunk(b_shards, 1),
+                                       w_t.chunk(b_shards, 1))):
+            block = f"{name} block ({i}, {j})"
+            if not bool(g.ne(0).any()):
+                raise AssertionError(f"{block}: all zeros")
+            c = compare(block, (g,), (w,), atol=0.0, atol_rel=PAR_GRAD_REL)
+            if worst is None or c["max_err_over_max"] > \
+                    worst["max_err_over_max"]:
+                worst = c
+    return worst
+
+
+def parallel_checks(got, want) -> dict:
+    """Each sharded call against the unsharded op: the outputs at
+    RTOL/ATOL, and a gradient (PAR_GRADS) block by block."""
+    checks = {}
+    for name in want:
+        if name in PAR_GRADS:
+            checks[name] = compare(name, got[name][:1], want[name][:1])
+            checks[name + " grad"] = compare_grad_blocks(
+                name + " grad", got[name][1], want[name][1],
+                *PAR_GRADS[name])
+        else:
+            checks[name] = compare(name, got[name], want[name])
+    return checks
+
+
+def parallel_worker(workdir, rank: int, world: int) -> int:
+    """One rank of phase parallel: the unsharded ops, then every sharded
+    call once with the launch counts set to 0 just before and read just
+    after, each against the unsharded op; then host-clock medians of both.
+    Prints one line, PAR_TAG and a JSON object."""
+    import torch.distributed as dist
+
+    from di_hpc_tpu_torch import parallel as P
+
+    P.initialize(f"file://{os.path.join(workdir, 'store')}", world, rank)
+    meshes = {tag: P.make_mesh(sizes) for tag, sizes in PAR_MESHES.items()}
+    dev = meshes["data4"].device
+    x = parallel_inputs(dev)
+    calls = parallel_calls(P, x, meshes)
+    want = {name: plain() for name, (_, plain) in calls.items()}
+    torch.cuda.synchronize()
+    dist.barrier()
+    kernels.reset_launch_counts()
+    got = {name: sharded() for name, (sharded, _) in calls.items()}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    checks = parallel_checks(got, want)
+    ms = {name: {"sharded": host_ms(sharded, PAR_REPS),
+                 "unsharded": host_ms(plain, PAR_REPS)}
+          for name, (sharded, plain) in calls.items()}
+    print(PAR_TAG + json.dumps({
+        "rank": rank, "backend": dist.get_backend(), "device": str(dev),
+        "meshes": {tag: m.shape for tag, m in meshes.items()},
+        "launches": launches, "checks": checks, "ms": ms,
+        "digests": {name: sha256(out) for name, out in got.items()}}),
+        flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel(dev) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = spawn_world([os.path.abspath(__file__), "--parallel-worker",
+                            tmp], PAR_WORLD, PAR_TIMEOUT_S)
+    reports = [json.loads(next(ln for ln in out.splitlines()
+                               if ln.startswith(PAR_TAG))[len(PAR_TAG):])
+               for out in outs]
+    first = reports[0]
+    for rep in reports[1:]:
+        differ = [n for n in first["digests"]
+                  if rep["digests"][n] != first["digests"][n]]
+        if differ:
+            raise AssertionError(f"rank {rep['rank']}: results differ from "
+                                 f"rank 0's bits: {differ}")
+    launches = {name: sum(rep["launches"][name] for rep in reports)
+                for name in first["launches"]}
+    check_launched("parallel", launches, PAR_KERNELS)
+    shared = first["backend"] == "gloo"
+    return {"world": PAR_WORLD, "backend": first["backend"],
+            "devices": [rep["device"] for rep in reports],
+            "meshes": first["meshes"],
+            "shape": {"T": PAR_T, "B": PAR_B, "N": PAR_N, "ppo_td": PAR_PPO},
+            "launches": launches,
+            "launches_by_rank": [{n: rep["launches"][n] for n in PAR_KERNELS}
+                                 for rep in reports],
+            "bitwise_equal_ranks": len(reports),
+            "tolerance": {"rtol": RTOL, "atol": ATOL,
+                          "gradient_blocks": {"rtol": RTOL, "atol": 0.0,
+                                              "atol_rel": PAR_GRAD_REL}},
+            "check_vs_unsharded": {
+                name: max((rep["checks"][name] for rep in reports),
+                          key=lambda c: c["max_err_over_max"])
+                for name in first["checks"]},
+            "timing_note": (
+                f"host-clock medians of rank 0 over {PAR_REPS} calls; " + (
+                    "four processes share one card and stage every "
+                    "collective through the host (gloo), so these are not "
+                    "a scaling figure" if shared else
+                    "one rank per card, collectives over NCCL")),
+            "ms_rank0": first["ms"]}
+
+
+# ----------------------------------------------------------- phase 12 ----
+
 def profile_one(fn) -> dict:
     """torch.profiler over one call of fn after a warm-up call: device busy
     time (the sum of kernel and copy times on the one stream), the wall time
@@ -3051,16 +3409,7 @@ def digests(dev) -> dict:
     instantiations, and the scan kernels' digests (scan_digests).  Run in
     two checkouts, the digests show whether a change left these kernels
     bitwise the same."""
-    import hashlib
-
-    def sha(tensors):
-        torch.cuda.synchronize()
-        digest = hashlib.sha256()
-        for t in tensors:
-            digest.update(t.contiguous().view(torch.uint8).cpu().numpy()
-                          .tobytes())
-        return digest.hexdigest()
-
+    sha = sha256
     lib = _build.library()
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -3151,6 +3500,16 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         emit({"profile": phase_profile(dev)})
         return 0
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        return parallel_worker(sys.argv[2], int(sys.argv[3]),
+                               int(sys.argv[4]))
+    if sys.argv[1:] == ["--parallel"]:
+        for name, fn in (("device", phase_device), ("build", phase_build),
+                         ("parallel", lambda: phase_parallel(dev))):
+            start = time.perf_counter()
+            emit({"phase": name, "ok": True, **fn(),
+                  "seconds": time.perf_counter() - start})
+        return 0
 
     results = {}
     for name, fn in (("device", phase_device), ("build", phase_build),
@@ -3163,6 +3522,7 @@ def main() -> int:
                      ("nstep", lambda: phase_nstep(dev)),
                      ("hostdata", lambda: phase_hostdata(
                          dev, results["kernels"])),
+                     ("parallel", lambda: phase_parallel(dev)),
                      ("profile", lambda: phase_profile(dev))):
         start = time.perf_counter()
         try:
@@ -3177,7 +3537,8 @@ def main() -> int:
     rows = results["kernels"]
     # Launches on each counted path run: the slice, the train legs, the bf16
     # path, the on-policy path, the UPGO/AlphaStar path, the TD family and
-    # the R2D2 learner, the host data plane with its two examples.
+    # the R2D2 learner, the host data plane with its two examples, the
+    # parallel layer's world (summed over its ranks).
     by_path = {"slice": results["slice"]["launches"],
                **{f"train {leg}": results["train"][leg]["launches"]
                   for leg in results["train"] if leg.startswith("B=")},
@@ -3185,7 +3546,8 @@ def main() -> int:
                "onpolicy": results["onpolicy"]["launches"],
                "upgo": results["upgo"]["launches"],
                "nstep": results["nstep"]["launches"],
-               "hostdata": results["hostdata"]["launches"]}
+               "hostdata": results["hostdata"]["launches"],
+               "parallel": results["parallel"]["launches"]}
     check_launched("all paths", {name: sum(c[name] for c in by_path.values())
                                  for name, *_ in KERNELS},
                    [name for name, *_ in KERNELS])

@@ -14,6 +14,8 @@ version.
                                  padding
  - `di_hpc_tpu_torch.data`    -- trajectory buffer and batch stacking for
                                  the actor-learner loop
+ - `di_hpc_tpu_torch.parallel` -- rank meshes on torch.distributed,
+                                 data-parallel losses, time-sharded scans
  - `di_hpc_tpu_torch.network` -- fused LayerNorm-LSTM
  - `di_hpc_tpu_torch.models`  -- LN-LSTM actor-critic forward and serving
  - `di_hpc_tpu_torch.kernels` -- the CUDA kernels' wrappers, plain versions
@@ -27,5 +29,5 @@ version.
 __version__ = "0.1.0"
 
 from di_hpc_tpu_torch import (  # noqa: F401
-    data, kernels, models, network, ops, origin, utils,
+    data, kernels, models, network, ops, origin, parallel, utils,
 )

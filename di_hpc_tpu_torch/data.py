@@ -9,9 +9,9 @@ counterpart of the JAX package's data.py.
  - `stack_trajectories`: pure host numpy; ragged float32 fields take the C
    host core's pack (csrc/host/hostcore.c), other dtypes a numpy pack.
 
-The JAX package can also shard a batch over a device mesh (`mesh=`); the
-port's parallel layer is not there yet (ROADMAP §1 item 4), so `mesh=`
-raises NotImplementedError.
+The JAX package can also shard a batch over a device mesh (`mesh=`); that
+branch is not ported yet (ROADMAP §1 item 4b), so `mesh=` raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,13 +23,11 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .parallel.mesh import DATA_AXIS
 from .utils.native import native_pack_padded_f32
+from .utils.transfer import to_device
 
 __all__ = ["TrajectoryBuffer", "stack_trajectories"]
-
-# The batch axis's name on a mesh (the JAX package's parallel.mesh
-# DATA_AXIS); here until the port has its parallel layer.
-DATA_AXIS = "data"
 
 
 def _host_pad_nd(arrs):
@@ -134,13 +132,15 @@ class TrajectoryBuffer:
         FIFO order when `pop` (on-policy, IMPALA-style), waiting up to
         `timeout` seconds for `batch_size` trajectories; uniform sampling
         with replacement otherwise (replay-style), with `rng.integers` as
-        the JAX package samples.  Each field is one transfer, in numpy's
-        dtype (masks are torch.bool).  `mesh` is not supported yet.
+        the JAX package samples.  Each field is one transfer, in the dtype
+        the JAX package's transfer gives it: float64 lands as float32, int64
+        as int32, the rest in numpy's dtype (masks are torch.bool;
+        utils.transfer).  `mesh` is not supported yet.
         """
         if mesh is not None:
             raise NotImplementedError(
-                "TrajectoryBuffer.sample_batch: mesh sharding needs the "
-                "port's parallel layer (ROADMAP §1 item 4), not ported yet")
+                "TrajectoryBuffer.sample_batch: the mesh= branch is not "
+                "ported yet (ROADMAP §1 item 4b)")
         with self._not_empty:
             if pop:
                 ok = self._not_empty.wait_for(
@@ -157,4 +157,4 @@ class TrajectoryBuffer:
                 trajs = [self._dq[int(i)] for i in idx]
 
         host = stack_trajectories(trajs, time_major=True)
-        return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        return {k: to_device(v, device) for k, v in host.items()}

@@ -9,10 +9,14 @@ with a `device` argument (default "cuda") for where the batches land:
    moved to `device` in one transfer per tensor.  The route is decided
    before the pack: when every item is a contiguous float32 array the C
    pack (csrc/host/hostcore.c) writes the batch and its float32 mask;
-   otherwise the oracle's numpy pack runs, which keeps the input dtype;
+   otherwise the oracle's numpy pack runs in the first item's dtype;
  - inputs already on the card (CUDA tensors) are packed there: one
    preallocated batch and mask, one slice copy per item, no round trip
    through the host.  It writes the bits the host route writes.
+
+On every route the batch and its mask land in the first item's dtype
+narrowed as the JAX package's transfers narrow it (float64 to float32,
+int64 to int32; utils.transfer), so both packages give one dtype.
 
 Grouped bucketing bounds the set of padded shapes, which is what a
 consumer with per-shape work (a cached plan, a captured graph) needs.
@@ -33,6 +37,7 @@ from ..origin.padding import (
     cum,
 )
 from ..utils.native import native_oracle_split_group, native_pack_padded_f32
+from ..utils.transfer import device_dtype, to_device
 
 __all__ = [
     "Padding1D", "Padding2D", "Padding3D",
@@ -56,13 +61,14 @@ def _on_cuda(x) -> bool:
 
 
 def _pad_on_card(x, value, ndim):
-    """The pack on the card: the batch and mask in x[0]'s dtype, `value`
-    outside each item, the item (and 1 in the mask) inside."""
+    """The pack on the card: the batch and mask in x[0]'s dtype after the
+    transfer rule (utils.transfer.device_dtype), `value` outside each item,
+    the item (and 1 in the mask) inside."""
     shapes = [tuple(t.shape) for t in x]
     for s in shapes:
         assert len(s) == ndim, (s, ndim)
     max_shape = [max(d) for d in zip(*shapes)]
-    like = dict(dtype=x[0].dtype, device=x[0].device)
+    like = dict(dtype=device_dtype(x[0].dtype), device=x[0].device)
     padded = torch.full((len(x), *max_shape), value, **like)
     mask = torch.full((len(x), *max_shape), value, **like)
     for i, t in enumerate(x):
@@ -87,8 +93,7 @@ def _pad_nd_fast(x, value, ndim, device):
         padded, mask = native_pack_padded_f32(host, max_shape, value)
     else:
         padded, mask, shapes = _origin._pad_nd_host(host, value, ndim)
-    return (torch.from_numpy(padded).to(device),
-            torch.from_numpy(mask).to(device), shapes)
+    return to_device(padded, device), to_device(mask, device), shapes
 
 
 def oracle_split_group(x: List, group: int):

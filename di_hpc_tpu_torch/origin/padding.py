@@ -19,6 +19,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.transfer import to_device
+
 __all__ = ["cum", "oracle_split_group", "Padding1D", "Padding2D",
            "Padding3D", "UnPadding1D", "UnPadding2D", "UnPadding3D"]
 
@@ -92,10 +94,11 @@ def _pad_nd_host(x: List, value=0, ndim: int = 1):
 
 def _pad_nd(x: List, value=0, ndim: int = 1, device="cuda"):
     """Pad a list of ndim-dimensional arrays to the elementwise-max shape:
-    (padded, mask, shapes), the two tensors on `device`."""
+    (padded, mask, shapes), the two tensors on `device`, narrowed as the
+    JAX oracle's jnp.asarray narrows them (float64 to float32, int64 to
+    int32; utils.transfer)."""
     padded, mask, shapes = _pad_nd_host(x, value, ndim)
-    return (torch.from_numpy(padded).to(device),
-            torch.from_numpy(mask).to(device), shapes)
+    return to_device(padded, device), to_device(mask, device), shapes
 
 
 def _grouped_padding(x: List, value, group: int, group_mode: str, ndim: int,

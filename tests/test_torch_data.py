@@ -3,8 +3,9 @@ package's data module, on the CPU: the counterparts of tests/test_data.py.
 
 Trajectories are made with numpy from a seed and handed to both sides; the
 port's batches land on device="cpu".  Tolerance: none -- stacking and
-padding copy, so the batches must be equal bit for bit, in numpy's dtypes
-(masks bool), and the error messages word for word.
+padding copy, so the batches must be equal bit for bit, in JAX's dtypes
+(float64 and int64 narrowed to float32 and int32, masks bool), and the
+error messages word for word.
 """
 
 import threading
@@ -157,6 +158,30 @@ def test_stack_errors_word_for_word(trajs):
     with pytest.raises(ValueError) as got:
         data.stack_trajectories(trajs)
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("pop", [True, False])
+def test_64_bit_fields_land_as_jax_narrows_them(pop):
+    """float64 fields land as float32 and int64 ones as int32, ragged
+    fields too (their masks bool), as JAX's transfer gives them: the same
+    dtypes and bits, FIFO and replay."""
+    rng = np.random.default_rng(8)
+    trajs = [{"r": np.arange(4.0) + i, "a": np.arange(4) + i,
+              "obs": rng.standard_normal((4, 3)),
+              "ragged": rng.standard_normal(int(rng.integers(2, 6))),
+              "ragged_i": rng.integers(0, 9, int(rng.integers(2, 6)))}
+             for i in range(5)]
+    assert trajs[0]["r"].dtype == np.float64 and \
+        trajs[0]["a"].dtype == np.int64
+    port, ref = _both_buffers(8, trajs)
+    got = port.sample_batch(4, pop=pop, rng=np.random.default_rng(2),
+                            device="cpu")
+    want = ref.sample_batch(4, pop=pop, rng=np.random.default_rng(2))
+    _same_batch(got, want)
+    assert {k: v.dtype for k, v in got.items()} == {
+        "r": torch.float32, "a": torch.int32, "obs": torch.float32,
+        "ragged": torch.float32, "ragged_mask": torch.bool,
+        "ragged_i": torch.int32, "ragged_i_mask": torch.bool}
 
 
 def test_mesh_is_not_supported_yet():

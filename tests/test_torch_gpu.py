@@ -1732,6 +1732,89 @@ def test_sample_batch_on_the_card_equals_the_cpu(cuda):
     assert out["fields"]["ragged_f32_mask"][0] == "torch.bool"
 
 
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int64])
+def test_64_bit_card_inputs_land_narrowed(cuda, ndim, dtype):
+    """float64 and int64 CUDA items, packed on the card (ops) or read back
+    to the host (origin), give float32 and int32 batches and masks, the
+    bits of the host route from numpy."""
+    rng = np.random.default_rng(80 + ndim)
+    xs = [np.round(4 * rng.standard_normal(
+        tuple(int(d) for d in rng.integers(2, 7, ndim))), 3)
+        for _ in range(11)]
+    xs = [a.astype(np.int64) if dtype == torch.int64 else a for a in xs]
+    narrow = {torch.float64: torch.float32, torch.int64: torch.int32}[dtype]
+    pad = f"Padding{ndim}D"
+    want = getattr(ops, pad)(xs, value=3, device="cpu")
+    assert want[0].dtype == want[1].dtype == narrow
+    on_card = [torch.from_numpy(a).to(cuda) for a in xs]
+    for mod in (ops, chip_smoke.origin):
+        got = getattr(mod, pad)(on_card, value=3, device=cuda)
+        assert got[0].device.type == "cuda"
+        chip_smoke.check_padded(f"{mod.__name__} {pad}", got, want, 1)
+
+
+def test_sample_batch_of_64_bit_fields_takes_the_vtrace_kernels(cuda):
+    """float64 and int64 trajectories arrive float32 and int32, and
+    ops.vtrace_error on the batch launches kernels 2 and 3
+    (chip_smoke.data_leg_64_bit)."""
+    m = chip_smoke.hostdata_modules()
+    trajs = chip_smoke.data_trajectories(np.random.default_rng(74))
+    out = chip_smoke.data_leg_64_bit(m.data, trajs, cuda)
+    assert out["dtypes"]["action"] == "torch.int32"
+
+
+SHARDED_TAG = "SHARDED_SCAN "
+
+
+def _sharded_scan_worker(workdir, rank: int, world: int) -> int:
+    """One rank of test_time_sharded_scan_on_two_ranks_on_the_card."""
+    import hashlib
+    import json
+
+    import torch.distributed as dist
+
+    from di_hpc_tpu_torch import parallel
+
+    parallel.initialize(f"file://{workdir}/store", world, rank)
+    mesh = parallel.make_mesh({"time": world})
+    g = torch.Generator(device=mesh.device).manual_seed(91)
+    a = torch.randn(1000, 33, generator=g, device=mesh.device)
+    b = torch.rand(1000, 33, generator=g, device=mesh.device) * 1.98 - 0.99
+    kernels.reset_launch_counts()
+    y = parallel.linear_recurrence_reverse_sharded(a, b, mesh)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["linear_scan"]
+    err = chip_smoke.compare("sharded scan", [y], [
+        ops.linear_recurrence_reverse(a, b, method="scan")])
+    print(SHARDED_TAG + json.dumps({
+        "launches": launches, "err": err, "device": str(y.device),
+        "backend": dist.get_backend(),
+        "digest": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()}),
+        flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def test_time_sharded_scan_on_two_ranks_on_the_card(cuda, tmp_path):
+    """A gloo world of 2 processes on the one card:
+    linear_recurrence_reverse_sharded at T=1000, B=33, each rank's time
+    chunk on kernel 6, against the unsharded op; both ranks' bits equal.
+    The world is killed at chip_smoke.PAR_TIMEOUT_S."""
+    import json
+
+    run_this_file = ("import runpy; runpy.run_path('tests/test_torch_gpu.py', "
+                     "run_name='__main__')")
+    outs = chip_smoke.spawn_world(["-c", run_this_file, str(tmp_path)], 2,
+                                  chip_smoke.PAR_TIMEOUT_S)
+    reports = [json.loads(next(ln for ln in out.splitlines()
+                               if ln.startswith(SHARDED_TAG))
+                          [len(SHARDED_TAG):]) for out in outs]
+    assert [r["launches"] for r in reports] == [1, 1]
+    assert {r["backend"] for r in reports} == {"gloo"}
+    assert reports[0]["digest"] == reports[1]["digest"]
+
+
 def test_episodic_step_on_the_card_matches_the_cpu(cuda):
     """One step of the episodic A2C: loss, gradients and the Adam update
     against the same step on the CPU; one launch of kernels 8 and 6 per
@@ -1781,3 +1864,10 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
             assert g.device == w.device and chip_smoke.bitwise_equal(g, w)
         else:
             assert g == w
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(_sharded_scan_worker(sys.argv[1], int(sys.argv[2]),
+                                  int(sys.argv[3])))

@@ -36,29 +36,24 @@ def _ragged(seed, n, ndim, lo, hi, dtype=np.float32):
         lo, hi, ndim))).astype(dtype) for _ in range(n)]
 
 
-def _equal(got, want, dtype=None):
-    """A port tensor equals a JAX (or numpy) array bit for bit, dtype too.
-    With `dtype`, the port's tensor must be of that dtype and equal `want`
-    once cast to want's: JAX without 64-bit mode narrows float64 to
-    float32, where the port keeps the input's dtype."""
+def _equal(got, want):
+    """A port tensor equals a JAX (or numpy) array bit for bit, dtype too
+    (both narrow float64 to float32 and int64 to int32 at the transfer)."""
     want = np.asarray(want)
     got = got.numpy()
-    if dtype is not None:
-        assert got.dtype == dtype, (got.dtype, dtype)
-        got = got.astype(want.dtype)
     assert got.dtype == want.dtype, (got.dtype, want.dtype)
     assert got.shape == want.shape, (got.shape, want.shape)
     assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
-def _check_result(got, want, group, dtype=None):
+def _check_result(got, want, group):
     """(padded, mask, shapes) or, grouped, three tuples over the buckets."""
     if group == 1:
         got, want = [[g] for g in got], [[w] for w in want]
     assert len(got[0]) == len(want[0])
     for gp, gm, gs, wp, wm, ws in zip(*got, *want):
-        _equal(gp, wp, dtype)
-        _equal(gm, wm, dtype)
+        _equal(gp, wp)
+        _equal(gm, wm)
         assert list(gs) == list(ws)
 
 
@@ -180,6 +175,9 @@ def test_pivot_dedupe_by_shape_in_origin_and_by_numel_in_ops():
     lambda s: _ragged(s, 3, 1, 2, 6) + _ragged(s + 1, 3, 1, 2, 6, np.float64),
 ])
 def test_inputs_off_the_c_pack_keep_their_dtype(make):
+    """The numpy route packs in the first item's dtype, and the batch and
+    mask land in JAX's dtype for it: int32, float16 and float32 as they
+    are, float64 as float32."""
     data = make(5)
     for group in (1, 2):
         got = ops.Padding2D(data, group=group, group_mode="oracle",
@@ -188,22 +186,54 @@ def test_inputs_off_the_c_pack_keep_their_dtype(make):
                           device="cpu")
         pad = jax_ops.Padding2D if data[0].ndim == 2 else jax_ops.Padding1D
         _check_result(got, pad(data, group=group, group_mode="oracle"),
-                      group, dtype=data[0].dtype)
+                      group)
 
 
 @pytest.mark.parametrize("ndim", [1, 2, 3])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("dtype", [np.float64, np.int64])
+@pytest.mark.parametrize("group,mode", [(1, "sample"), (3, "oracle")])
+@pytest.mark.parametrize("side", ["ops", "origin"])
+def test_64_bit_inputs_land_as_jax_narrows_them(ndim, dtype, group, mode,
+                                                 side):
+    """float64 items give a float32 batch and mask, int64 items int32 ones,
+    as JAX's jnp.asarray gives them, from numpy and from CPU tensors; the
+    bits are JAX's."""
+    data = [a.astype(dtype) if dtype == np.float64
+            else np.round(4 * a).astype(dtype)
+            for a in _ragged(70 + ndim, 9, ndim, 2, 7)]
+    port_mod, jax_mod = {"ops": (ops, jax_ops),
+                         "origin": (origin, jax_origin)}[side]
+    kw = dict(group=group, group_mode=mode, value=0.1 if dtype == np.float64
+              else 2)
+    want = getattr(jax_mod, PADS[ndim])(data, rng=np.random.default_rng(3),
+                                        **kw)
+    narrow = {np.float64: torch.float32, np.int64: torch.int32}[dtype]
+    for items in (data, [torch.from_numpy(a) for a in data]):
+        got = getattr(port_mod, PADS[ndim])(
+            items, rng=np.random.default_rng(3), device="cpu", **kw)
+        _check_result(got, want, group)
+        batches = [got[0]] if group == 1 else list(got[0])
+        masks = [got[1]] if group == 1 else list(got[1])
+        assert {t.dtype for t in batches + masks} == {narrow}
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32,
+                                   torch.float64, torch.int64])
 def test_pack_for_card_inputs_gives_the_host_route_bits(ndim, dtype):
     """The pack that CUDA inputs take (one batch, one slice copy per item),
-    run here on CPU tensors, against the host route."""
+    run here on CPU tensors, against the host route: the same dtype
+    (float64 and int64 narrowed to float32 and int32) and bits."""
     data = [torch.from_numpy(a).to(dtype)
             for a in _ragged(50 + ndim, 11, ndim, 1, 7)]
     got = port_padding._pad_on_card(data, 0.5 if dtype.is_floating_point
                                     else 3, ndim)
     want = getattr(ops, PADS[ndim])(data, value=0.5 if dtype.is_floating_point
                                     else 3, device="cpu")
+    narrow = {torch.float64: torch.float32, torch.int64: torch.int32}
     for g, w in zip(got[:2], want[:2]):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+        assert g.dtype == w.dtype == narrow.get(dtype, dtype)
+        assert torch.equal(g, w)
     assert got[2] == want[2]
 
 
