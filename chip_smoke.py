@@ -4,13 +4,16 @@
     python3 chip_smoke.py              # no arguments; needs one CUDA card
     python3 chip_smoke.py --digests    # only the LSTM and scan kernels'
                                        # output digests and ptxas lines
-    python3 chip_smoke.py --profile    # only phase 12 (profile)
-    python3 chip_smoke.py --parallel   # only phases 1, 2 and 11; on as many
-                                       # cards as the world has ranks, one
-                                       # rank per card over NCCL
+    python3 chip_smoke.py --profile    # only phase 13 (profile)
+    python3 chip_smoke.py --parallel   # only phases 1, 2, 11 and 12; on as
+                                       # many cards as the worlds have
+                                       # ranks, one rank per card over NCCL
     python3 chip_smoke.py --parallel-worker DIR RANK WORLD
                                        # one rank of phase 11, which
                                        # spawns them
+    python3 chip_smoke.py --multichip-worker DIR RANK WORLD
+                                       # one rank of phase 12's full-width
+                                       # world, which spawns them
 
 Phases, each printing one JSON line (`{"phase": ...}`):
 
@@ -217,7 +220,35 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 results must equal rank 0's bit for bit.  The host clocks
                 are four processes sharing one card, with every collective
                 staged through the host: not a scaling figure.
- 12. profile -- torch.profiler over one more run of each of the timed calls
+ 12. multichip -- the data x model sharded train step
+                (models.make_sharded_train_step) on the one card, three
+                parts: `entry.dryrun_multichip(4)`, a gloo world of 4 rank
+                processes on a {data: 2, model: 2} mesh running the JAX
+                dryrun's twelve legs (the sharded train step in f32 and
+                bf16 at its tiny setup, 8 rows per rank: kernels 1 and 5;
+                the time-sharded scan and four losses on {time: 2, data:
+                2}: kernel 6; C51, QR-DQN, IQN, the scatter connection and
+                grouped padding sharded over the batch), each against the
+                unsharded op on the card, twice, every rank's results rank
+                0's bits; then a world of the same shape running MC_STEPS
+                sharded train steps at the flagship's full width (obs 256,
+                H 512, 2 layers, 64 actions, T=32, global B=256: 128 rows
+                per rank, kernel 4) in f32 and in bf16, each step's metrics,
+                gathered gradients and gathered parameters against the
+                unsharded step on the card from the same parameters and
+                Adam state (f32 at RTOL and GRAD_ATOL_REL of each leaf's
+                max|want|; bf16 at the bf16 train step's bounds; the
+                parameters by entry.sharded_train_steps' rule), every rank's
+                results rank 0's bits, then rank 0's host-clock medians of
+                MC_REPS sharded and unsharded steps; then
+                `examples.impala_training.main` for IMPALA_STEPS steps in
+                f32 and in bf16 in a world of one (B=64, H=128: kernel 4),
+                finite losses.  Each part's sharded calls are counted per
+                rank, and every rank must launch its part's kernels
+                (MC_PART_KERNELS); every sharded LSTM layer must take the
+                kernels (`lstm_fused.routes`).  Under `--parallel` on 4
+                cards each world takes NCCL, one rank per card.
+ 13. profile -- torch.profiler over one more run of each of the timed calls
                 (forward, serving loop, V-trace, train step, the three
                 on-policy calls, the UPGO loss, the AlphaStar train step and
                 the bf16 train step), of the f32 and bf16 train steps at
@@ -234,7 +265,7 @@ backward's inputs from the plain forward) and their ptxas lines, and of the
 scan kernels' (2, 3, 6-12) outputs at T=1024, B=4096 and at the ragged
 T=1000, B=4100: run in two checkouts, they show whether a change left those
 kernels bitwise the same.
-With `--profile` it prints only phase 12's line, which runs in an older
+With `--profile` it prints only phase 13's line, which runs in an older
 checkout too.  Any
 failure prints its phase
 with `"ok": false` and exits 1; no card (or no port beside this script)
@@ -3008,44 +3039,12 @@ PAR_TIMEOUT_S = 480
 
 
 def spawn_world(argv, world, timeout, env=None) -> list:
-    """Runs `python3 *argv RANK WORLD` for every rank (in `env`, default
-    this process's) and returns each rank's output.  Each rank writes to a
-    file of its own (a pipe left unread could stall a rank in a
-    collective), and all are waited on under one deadline.  Every process
-    still running at the deadline is killed; a rank that fails, or a
-    deadline that passes, raises with the tails of the ranks' outputs."""
-    with tempfile.TemporaryDirectory() as logs:
-        files = [open(os.path.join(logs, f"rank{r}.log"), "w+")
-                 for r in range(world)]
-        procs = [subprocess.Popen([sys.executable, *argv, str(r),
-                                   str(world)], cwd=ROOT, env=env,
-                                  stdout=files[r], stderr=subprocess.STDOUT)
-                 for r in range(world)]
-        deadline = time.monotonic() + timeout
-        late = False
-        try:
-            for p in procs:
-                p.wait(timeout=max(1.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            late = True
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            outs = []
-            for f in files:
-                f.seek(0)
-                outs.append(f.read())
-                f.close()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if late or bad:
-        why = f"passed its {timeout} s deadline" if late else "failed"
-        raise RuntimeError(f"a world of {world}: {why}; ranks {bad} "
-                           f"ended non-zero:\n" + "\n".join(
-                               f"--- rank {r}:\n{outs[r][-4000:]}"
-                               for r in range(world) if late or r in bad))
-    return outs
+    """parallel.runtime.spawn_world (imported here, not at the top, so that
+    --digests and --profile still run in an older checkout that lacks
+    it)."""
+    from di_hpc_tpu_torch.parallel.runtime import spawn_world as spawn
+
+    return spawn(argv, world, timeout, env)
 
 
 def parallel_inputs(dev) -> dict:
@@ -3254,6 +3253,236 @@ def phase_parallel(dev) -> dict:
 
 
 # ----------------------------------------------------------- phase 12 ----
+
+# The multichip path: entry.dryrun_multichip's world of 4 rank processes on
+# the one card (gloo, each on cuda:0; NCCL, one rank per card, under
+# --parallel on 4 cards), then the sharded train step at the flagship's
+# full width in a world of the same shape, then examples.impala_training in
+# a world of one.
+MC_WORLD = 4
+MC_MESH = {"data": 2, "model": 2}
+MC_B, MC_STEPS, MC_REPS = 256, 3, 5     # global B: 128 per rank (V2)
+IMPALA_STEPS = 5
+# The kernels each rank of a part must launch: the dryrun's train legs take
+# V1 (8 rows per rank) and its time-sharded legs kernel 6; the full width
+# (128 rows per rank) and impala_training (B=64) take V2; all take kernels
+# 1, 2 and 3, the LSTM kernels in both dtypes.
+MC_TRAIN_KERNELS = ("lstm_layer_fused", "lstm_layer_fused_bf16",
+                    "vtrace_losses", "vtrace_returns_adv")
+MC_PART_KERNELS = {
+    "dryrun": MC_TRAIN_KERNELS + ("lstm_layer_bwd_v1",
+                                  "lstm_layer_bwd_v1_bf16", "linear_scan"),
+    "full_width": MC_TRAIN_KERNELS + ("lstm_layer_bwd_v2",
+                                      "lstm_layer_bwd_v2_bf16"),
+    "impala_training": MC_TRAIN_KERNELS + ("lstm_layer_bwd_v2",
+                                           "lstm_layer_bwd_v2_bf16")}
+MC_KERNELS = tuple(dict.fromkeys(k for ks in MC_PART_KERNELS.values()
+                                 for k in ks))
+# The sharded step against the unsharded step on the card, after each
+# step: float32 as phase train holds the card against the CPU (RTOL/ATOL
+# on the metrics, RTOL and GRAD_ATOL_REL of each leaf's max|want| on the
+# gradients); bf16 at the bf16 train step's bounds (entry.TRAIN_TOLERANCE).
+# The new parameters by entry.sharded_train_steps' rule.
+MC_F32_TOLERANCE = {"metrics": {"rtol": RTOL, "atol": ATOL},
+                    "grads": {"rtol": RTOL, "atol": 0.0,
+                              "atol_rel": GRAD_ATOL_REL}}
+MC_TAG = "MULTICHIP_RANK "
+# A world that has not finished by then is killed and the phase fails.
+MC_TIMEOUT_S = 300
+
+
+def train_check_summary(checks: dict) -> dict:
+    """The worst errors of one step of entry.sharded_train_steps' checks:
+    metrics, gradients (over max|want|), the parameters against Adam's
+    update by the gathered gradient and, at the first step, against the
+    unsharded step where |grad| is big; the largest move."""
+    leaves = [v for k, v in checks.items() if k != "metrics"]
+    out = {"metrics_max_abs_err": max(c["max_abs_err"] for c in
+                                      checks["metrics"].values()),
+           "grad_max_err_over_max": max(v["grad"]["max_err_over_max"]
+                                        for v in leaves),
+           "param_vs_adam_max_abs_err": max(
+               v["param_vs_adam"]["max_abs_err"] for v in leaves),
+           "param_max_moved": max(v["param_moved"] for v in leaves)}
+    if "param_big_grad" in leaves[0]:
+        out["param_big_grad_max_abs_err"] = max(
+            v["param_big_grad"]["max_abs_err"] for v in leaves)
+    return out
+
+
+def multichip_worker(workdir, rank: int, world: int) -> int:
+    """One rank of phase multichip's full-width world: MC_STEPS sharded
+    train steps in f32 and in bf16 (entry.sharded_train_steps: each step
+    against the unsharded step from the same state), the sharded calls'
+    launches and LSTM routes counted, then host-clock medians of MC_REPS
+    sharded and unsharded steps.  Prints one line, MC_TAG and a JSON
+    object."""
+    import torch.distributed as dist
+
+    from di_hpc_tpu_torch import entry, parallel as P
+
+    start = time.perf_counter()
+    P.initialize(f"file://{os.path.join(workdir, 'store')}", world, rank)
+    mesh = P.make_mesh(MC_MESH)
+    dev = mesh.device
+    rng = np.random.default_rng(SEED + 40)
+    arrays = model_arrays(rng)
+    batches_np = [train_batch(rng, MC_B) for _ in range(MC_STEPS)]
+    batches = [models.TrainBatch(*(torch.from_numpy(np.asarray(a)).to(dev)
+                                   for a in b)) for b in batches_np]
+    cfg = models.ActorCriticConfig(OBS, HID, LAYERS, ACTIONS)
+    tally = entry.LaunchTally()
+    out = {"rank": rank, "backend": dist.get_backend(), "device": str(dev),
+           "checks": {}, "ms": {}, "digests": {},
+           "seconds": {"set_up": time.perf_counter() - start}}
+    for tag, dtype, tol in (("f32", None, MC_F32_TOLERANCE),
+                            ("bf16", torch.bfloat16,
+                             entry.TRAIN_TOLERANCE[torch.bfloat16])):
+        start = time.perf_counter()
+        results, checks = entry.sharded_train_steps(
+            cfg, arrays, batches, mesh, dtype, tally=tally, tolerance=tol,
+            name=f"multichip {tag}")
+        out["seconds"][f"checked_steps_{tag}"] = time.perf_counter() - start
+        out["digests"][tag] = entry.digest(results)
+        out["checks"][tag] = {step: train_check_summary(c)
+                              for step, c in checks.items()}
+        out["metrics_" + tag] = {k: float(results[f"step{MC_STEPS - 1}/"
+                                                  f"metrics/{k}"])
+                                 for k in ("total_loss", "policy_loss",
+                                           "value_loss", "entropy")}
+        shardings = models.actor_critic_shardings(mesh, LAYERS)
+        params = models.ActorCriticParams(*P.shard_params(
+            models.from_jax_params(arrays, device=dev).params(), shardings))
+        step = models.make_sharded_train_step(
+            cfg, torch.optim.Adam(params.parameters(), lr=1e-3), mesh,
+            compute_dtype=dtype)
+        local = P.shard_batch_pytree(mesh, batches[0],
+                                     models.TrainBatch(1, 1, 1, 1))
+        ref, ref_step, ref_batch = train_setup(arrays, batches_np[0], dev,
+                                               dtype)
+        out["ms"][tag] = {
+            "sharded": host_ms(lambda: step(params, local), MC_REPS),
+            "unsharded": host_ms(lambda: ref_step(ref, ref_batch),
+                                 MC_REPS)}
+    out["launches"] = tally.launches
+    out["lstm_routes"] = tally.routes
+    print(MC_TAG + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multichip(dev) -> dict:
+    from di_hpc_tpu_torch import entry
+    from di_hpc_tpu_torch.examples import impala_training
+
+    start = time.perf_counter()
+    dryrun = entry.dryrun_multichip(MC_WORLD)
+    dryrun_s = time.perf_counter() - start
+    routes = [rep["lstm_routes"] for rep in dryrun]
+    if any(r["recurrent"] for r in routes):
+        raise AssertionError(f"dryrun: sharded LSTM layers took the "
+                             f"recurrent path: {routes}")
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = spawn_world([os.path.abspath(__file__), "--multichip-worker",
+                            tmp], MC_WORLD, MC_TIMEOUT_S)
+    full_s = time.perf_counter() - start
+    reports = [json.loads(next(ln for ln in out.splitlines()
+                               if ln.startswith(MC_TAG))[len(MC_TAG):])
+               for out in outs]
+    for rep in reports[1:]:
+        if rep["digests"] != reports[0]["digests"]:
+            raise AssertionError(f"full width: rank {rep['rank']}'s "
+                                 f"results differ from rank 0's bits")
+    for rep in reports:
+        if rep["lstm_routes"]["recurrent"]:
+            raise AssertionError(f"full width: rank {rep['rank']}'s LSTM "
+                                 f"layers took the recurrent path: "
+                                 f"{rep['lstm_routes']}")
+
+    start = time.perf_counter()
+    kernels.reset_launch_counts()
+    network.reset_route_counts()
+    impala = {}
+    for tag, bf16 in (("f32", False), ("bf16", True)):
+        params, metrics = impala_training.main(steps=IMPALA_STEPS, bf16=bf16)
+        check_finite(f"impala_training {tag}", list(metrics.values())
+                     + list(params.parameters()))
+        impala[tag] = {k: float(v) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    impala_launches = kernels.launch_counts()
+    impala_routes = dict(network.lstm_fused.routes)
+    impala_s = time.perf_counter() - start
+    if impala_routes["recurrent"]:
+        raise AssertionError(f"impala_training: LSTM layers took the "
+                             f"recurrent path: {impala_routes}")
+
+    by_rank = {"dryrun": [rep["launches"] for rep in dryrun],
+               "full_width": [rep["launches"] for rep in reports],
+               "impala_training": [impala_launches]}
+    for part, group in by_rank.items():
+        for r, counts in enumerate(group):
+            check_launched(f"multichip {part}, rank {r}",
+                           {n: counts.get(n, 0) for n in MC_KERNELS},
+                           MC_PART_KERNELS[part])
+    launches = {name: sum(counts.get(name, 0) for group in by_rank.values()
+                          for counts in group) for name in impala_launches}
+    check_launched("multichip", launches, MC_KERNELS)
+    first = reports[0]
+    return {
+        "world": MC_WORLD, "backend": first["backend"],
+        "devices": [rep["device"] for rep in reports],
+        "dryrun": {"line": dryrun[0]["line"], "seconds": dryrun_s,
+                   "backend": dryrun[0]["backend"],
+                   "mesh": dryrun[0]["mesh"], "sp_mesh": dryrun[0]["sp_mesh"],
+                   "lstm_routes_by_rank": routes,
+                   "checks_worst_rank": {
+                       leg: max((rep["checks"][leg] for rep in dryrun),
+                                key=lambda c: c["max_abs_err"])
+                       for leg in entry.LEG_TOLERANCE},
+                   "train_checks_rank0": {
+                       leg: train_check_summary(dryrun[0]["checks"][leg])
+                       for leg in ("train_step_sharded",
+                                   "train_step_bf16_sharded")}},
+        "full_width": {
+            "mesh": MC_MESH, "shape": {"obs": OBS, "H": HID, "L": LAYERS,
+                                       "A": ACTIONS, "T": T_TR, "B": MC_B,
+                                       "B_per_rank": MC_B // MC_MESH["data"]},
+            "steps": MC_STEPS, "seconds": full_s,
+            "seconds_rank0": first["seconds"],
+            "tolerance": {"f32": MC_F32_TOLERANCE,
+                          "bf16": entry.TRAIN_TOLERANCE[torch.bfloat16],
+                          "params": {"atol": entry.PARAM_ATOL,
+                                     "grad_big": entry.GRAD_BIG}},
+            "bitwise_equal_ranks": len(reports),
+            "lstm_routes_by_rank": [rep["lstm_routes"] for rep in reports],
+            "checks_worst_rank": {
+                tag: {step: max((rep["checks"][tag][step] for rep in
+                                 reports),
+                                key=lambda c: c["grad_max_err_over_max"])
+                      for step in first["checks"][tag]}
+                for tag in first["checks"]},
+            "metrics_last_step": {tag: first[f"metrics_{tag}"]
+                                  for tag in ("f32", "bf16")},
+            "ms_rank0": first["ms"],
+            "timing_note": (
+                f"host-clock medians of rank 0 over {MC_REPS} steps at "
+                f"T={T_TR}, B={MC_B} (sharded: 128 rows per rank); " + (
+                    "four processes share one card and stage every "
+                    "collective through the host (gloo): not a scaling "
+                    "figure" if first["backend"] == "gloo" else
+                    "one rank per card, collectives over NCCL"))},
+        "impala_training": {"steps": IMPALA_STEPS, "seconds": impala_s,
+                            "last_metrics": impala,
+                            "lstm_routes": impala_routes},
+        "launches_by_rank": {part: [{n: c.get(n, 0) for n in MC_KERNELS}
+                                    for c in group]
+                             for part, group in by_rank.items()},
+        "launches": launches}
+
+
+# ----------------------------------------------------------- phase 13 ----
 
 def profile_one(fn) -> dict:
     """torch.profiler over one call of fn after a warm-up call: device busy
@@ -3503,9 +3732,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--parallel-worker"]:
         return parallel_worker(sys.argv[2], int(sys.argv[3]),
                                int(sys.argv[4]))
+    if sys.argv[1:2] == ["--multichip-worker"]:
+        return multichip_worker(sys.argv[2], int(sys.argv[3]),
+                                int(sys.argv[4]))
     if sys.argv[1:] == ["--parallel"]:
         for name, fn in (("device", phase_device), ("build", phase_build),
-                         ("parallel", lambda: phase_parallel(dev))):
+                         ("parallel", lambda: phase_parallel(dev)),
+                         ("multichip", lambda: phase_multichip(dev))):
             start = time.perf_counter()
             emit({"phase": name, "ok": True, **fn(),
                   "seconds": time.perf_counter() - start})
@@ -3523,6 +3756,7 @@ def main() -> int:
                      ("hostdata", lambda: phase_hostdata(
                          dev, results["kernels"])),
                      ("parallel", lambda: phase_parallel(dev)),
+                     ("multichip", lambda: phase_multichip(dev)),
                      ("profile", lambda: phase_profile(dev))):
         start = time.perf_counter()
         try:
@@ -3538,7 +3772,8 @@ def main() -> int:
     # Launches on each counted path run: the slice, the train legs, the bf16
     # path, the on-policy path, the UPGO/AlphaStar path, the TD family and
     # the R2D2 learner, the host data plane with its two examples, the
-    # parallel layer's world (summed over its ranks).
+    # parallel layer's world (summed over its ranks), the multichip path
+    # (its two worlds summed over their ranks, and impala_training).
     by_path = {"slice": results["slice"]["launches"],
                **{f"train {leg}": results["train"][leg]["launches"]
                   for leg in results["train"] if leg.startswith("B=")},
@@ -3547,7 +3782,8 @@ def main() -> int:
                "upgo": results["upgo"]["launches"],
                "nstep": results["nstep"]["launches"],
                "hostdata": results["hostdata"]["launches"],
-               "parallel": results["parallel"]["launches"]}
+               "parallel": results["parallel"]["launches"],
+               "multichip": results["multichip"]["launches"]}
     check_launched("all paths", {name: sum(c[name] for c in by_path.values())
                                  for name, *_ in KERNELS},
                    [name for name, *_ in KERNELS])

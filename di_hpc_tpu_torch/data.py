@@ -9,9 +9,9 @@ counterpart of the JAX package's data.py.
  - `stack_trajectories`: pure host numpy; ragged float32 fields take the C
    host core's pack (csrc/host/hostcore.c), other dtypes a numpy pack.
 
-The JAX package can also shard a batch over a device mesh (`mesh=`); that
-branch is not ported yet (ROADMAP §1 item 4b), so `mesh=` raises
-NotImplementedError.
+With a mesh (`mesh=`), a rank is one process with a buffer of its own, as
+a host is in a JAX multi-host run: it pops its share of the global batch
+and returns it as its shard of the batch dimension.
 """
 
 from __future__ import annotations
@@ -135,12 +135,20 @@ class TrajectoryBuffer:
         the JAX package samples.  Each field is one transfer, in the dtype
         the JAX package's transfer gives it: float64 lands as float32, int64
         as int32, the rest in numpy's dtype (masks are torch.bool;
-        utils.transfer).  `mesh` is not supported yet.
+        utils.transfer).
+
+        With a `mesh` (parallel.make_mesh), `batch_size` is the global
+        batch: this rank takes `batch_size // mesh.shape[axis]`
+        trajectories from its own buffer and returns them on `mesh.device`
+        as its shard of dim 1 (the global batch is the ranks' shares in
+        rank order), ready for models.make_sharded_train_step; JAX's places
+        one host's global batch sharded over the axis.  ValueError when
+        `batch_size` does not tile the axis.  In a world of one this is the
+        unsharded call on `mesh.device`.
         """
         if mesh is not None:
-            raise NotImplementedError(
-                "TrajectoryBuffer.sample_batch: the mesh= branch is not "
-                "ported yet (ROADMAP §1 item 4b)")
+            batch_size = self._share(batch_size, mesh, axis)
+            device = mesh.device
         with self._not_empty:
             if pop:
                 ok = self._not_empty.wait_for(
@@ -158,3 +166,12 @@ class TrajectoryBuffer:
 
         host = stack_trajectories(trajs, time_major=True)
         return {k: to_device(v, device) for k, v in host.items()}
+
+    @staticmethod
+    def _share(batch_size: int, mesh, axis: str) -> int:
+        k = mesh.axis_size(axis)
+        if batch_size % k:
+            raise ValueError(
+                f"TrajectoryBuffer.sample_batch: batch_size {batch_size} "
+                f"does not tile the {axis!r} axis of size {k}")
+        return batch_size // k

@@ -13,8 +13,13 @@ learner batch 32, entropy 0.02, Adam 1e-3).
    publishes CPU copies of the parameters, which the actor loads once per
    rollout: the off-policy lag V-trace's importance weights correct for.
 
-The JAX example can also shard the learner batch over a device mesh; that
-waits for the port's parallel layer (ROADMAP §1 item 4).
+In a world of several ranks (parallel.initialize) whose count tiles the
+learner batch, every rank runs this loop as a host of a JAX multi-host run
+would: its own actor (its environment seeded by its rank) and buffer, and
+a learner that pops its share of the global batch (`sample_batch(mesh=)`,
+`parallel.make_mesh()`: every rank on one data axis) and feeds that shard
+straight to `models.make_sharded_train_step`, whose update is the same on
+every rank, so the ranks publish bitwise equal parameters.
 
 Run: python -m di_hpc_tpu_torch.examples.impala_actor_learner [--device cpu]
 """
@@ -26,11 +31,13 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from di_hpc_tpu_torch import parallel
 from di_hpc_tpu_torch.data import TrajectoryBuffer
 from di_hpc_tpu_torch.models import (
-    ActorCriticConfig, TrainBatch, actor_step, init_actor_critic,
-    make_train_step,
+    ActorCriticConfig, ActorCriticParams, TrainBatch, actor_critic_shardings,
+    actor_step, init_actor_critic, make_sharded_train_step, make_train_step,
 )
 
 CFG = ActorCriticConfig(obs_dim=16, hidden_size=64, num_layers=1,
@@ -64,14 +71,32 @@ class ToyEnv:
         return self.state.copy(), reward
 
 
-def init_learner(device="cuda"):
+def init_learner(device="cuda", mesh=None):
     """The learner's parameters (from a generator seeded with SEED), its
-    Adam and its train step."""
+    Adam and its train step: with a mesh, this rank's copy of the
+    parameters placed by actor_critic_shardings and the sharded step."""
     params = init_actor_critic(CFG, torch.Generator().manual_seed(SEED),
                                device)
+    if mesh is None:
+        optimizer = torch.optim.Adam(params.parameters(), lr=LR)
+        return params, optimizer, make_train_step(
+            CFG, optimizer, entropy_coef=ENTROPY_COEF)
+    params = ActorCriticParams(*parallel.shard_params(
+        params.params(), actor_critic_shardings(mesh, CFG.num_layers)))
     optimizer = torch.optim.Adam(params.parameters(), lr=LR)
-    train = make_train_step(CFG, optimizer, entropy_coef=ENTROPY_COEF)
-    return params, optimizer, train
+    return params, optimizer, make_sharded_train_step(
+        CFG, optimizer, mesh, entropy_coef=ENTROPY_COEF)
+
+
+def learner_mesh(learn_batch: int, device="cuda"):
+    """make_mesh() when the process group has more than one rank and the
+    learner batch tiles them, else None (JAX's rule over its devices); on
+    the CPU when `device` is."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == 1 or learn_batch % world:
+        return None
+    return parallel.make_mesh(
+        devices=None if str(device) != "cpu" else ["cpu"] * world)
 
 
 def _host_state(params) -> dict:
@@ -84,8 +109,14 @@ def run(steps: int = 30, T: int = 16, env_batch: int = 32,
         learn_batch: int = 32, device="cuda", on_step=None):
     """`steps` learner steps; returns the learner's parameters.  After each
     step `on_step(i, params, batch, metrics)` is called where given (the
-    parameters' .grad hold that step's gradients)."""
-    params, _, train = init_learner(device)
+    parameters' .grad hold that step's gradients; with a mesh, `batch` is
+    this rank's shard).  In a world of several ranks each runs the loop
+    with the sharded learner (module docstring)."""
+    mesh = learner_mesh(learn_batch, device)
+    rank = 0
+    if mesh is not None:
+        device, rank = mesh.device, dist.get_rank()
+    params, _, train = init_learner(device, mesh)
     buf = TrajectoryBuffer(capacity=256)
     stop = threading.Event()
     actor_exc = []
@@ -94,8 +125,8 @@ def run(steps: int = 30, T: int = 16, env_batch: int = 32,
     shared = {"params": _host_state(params)}
 
     def actor_loop():
-        env = ToyEnv(env_batch, CFG.obs_dim, CFG.action_dim)
-        gen = torch.Generator().manual_seed(SEED + 1)
+        env = ToyEnv(env_batch, CFG.obs_dim, CFG.action_dim, seed=rank)
+        gen = torch.Generator().manual_seed(SEED + 1 + rank)
         actor_params = init_actor_critic(CFG, torch.Generator(), "cpu")
         zeros = torch.zeros(CFG.num_layers, env_batch, CFG.hidden_size)
         state = (zeros, zeros)
@@ -134,7 +165,7 @@ def run(steps: int = 30, T: int = 16, env_batch: int = 32,
     try:
         for i in range(steps):
             try:
-                batch = buf.sample_batch(learn_batch,
+                batch = buf.sample_batch(learn_batch, mesh=mesh,
                                          timeout=SAMPLE_TIMEOUT_S,
                                          device=device)
             except TimeoutError:

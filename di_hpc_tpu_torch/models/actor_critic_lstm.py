@@ -9,13 +9,14 @@ forward, `ops.vtrace_error`, the backward (the LSTM's hand-derived
 backward kernels, the V-trace loss kernel's recompute backward) and the
 optimizer's update; with `compute_dtype=torch.bfloat16` the forward runs in
 bf16 (the LSTM kernels' bf16 streams) while the master parameters, the
-V-trace loss and the optimizer stay float32.
+V-trace loss and the optimizer stay float32.  `make_sharded_train_step` is
+the same step over a data x model mesh of ranks (the placement of
+`actor_critic_shardings`), with its collectives in parallel._comm.
 """
 
 from __future__ import annotations
 
-from types import SimpleNamespace
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,11 +24,16 @@ from torch import nn
 from ..network.lstm import LSTMWeights, lstm_fused
 from ..ops.vtrace import vtrace_data, vtrace_error
 from ..origin.rnn import LSTMParams, init_lstm_params
+from ..parallel._comm import all_gather, fan_out, reduce
+from ..parallel.api import lstm_param_shardings
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, NamedSharding,
+                             gather_params, replicated)
+from ..utils.checkpoint import tree_flatten
 
 __all__ = [
-    "ActorCriticConfig", "ActorCriticParams", "TrainBatch",
-    "init_actor_critic", "actor_critic_forward", "actor_step",
-    "make_train_step",
+    "ActorCriticConfig", "ActorCriticArrays", "ActorCriticParams",
+    "TrainBatch", "init_actor_critic", "actor_critic_forward", "actor_step",
+    "make_train_step", "actor_critic_shardings", "make_sharded_train_step",
 ]
 
 
@@ -37,6 +43,21 @@ class ActorCriticConfig(NamedTuple):
     num_layers: int
     action_dim: int
     norm_type: Optional[str] = "LN"
+
+
+class ActorCriticArrays(NamedTuple):
+    """ActorCriticParams as a tuple, field for field the JAX package's
+    ActorCriticParams (`lstm` an LSTMParams): numpy arrays
+    (models.to_numpy_params), the module's tensors
+    (ActorCriticParams.params()), or a NamedSharding per leaf
+    (actor_critic_shardings)."""
+    embed_w: Any
+    embed_b: Any
+    lstm: LSTMParams
+    policy_w: Any
+    policy_b: Any
+    value_w: Any
+    value_b: Any
 
 
 class ActorCriticParams(nn.Module):
@@ -54,6 +75,12 @@ class ActorCriticParams(nn.Module):
         self.policy_b = nn.Parameter(policy_b)
         self.value_w = nn.Parameter(value_w)
         self.value_b = nn.Parameter(value_b)
+
+    def params(self) -> ActorCriticArrays:
+        """The module's parameters in the JAX tuple's order."""
+        return ActorCriticArrays(self.embed_w, self.embed_b,
+                                 self.lstm.params(), self.policy_w,
+                                 self.policy_b, self.value_w, self.value_b)
 
 
 class TrainBatch(NamedTuple):
@@ -94,9 +121,9 @@ def actor_critic_forward(
     """Returns (logits (S, B, A), value (S, B), next_state (h, c), each
     (L, B, H)).  Runs where `params` and `obs` lie, in their dtype (float32,
     or bf16 with bf16 streams in the LSTM kernels); differentiable in the
-    parameters on either device.  `params.lstm` is an LSTMWeights module or
-    an LSTMParams tuple.  Under torch.no_grad() the LSTM layers skip the
-    cell-state stash the backward reads."""
+    parameters on either device.  `params` is an ActorCriticParams or an
+    ActorCriticArrays of tensors.  Under torch.no_grad() the LSTM layers
+    skip the cell-state stash the backward reads."""
     lstm = params.lstm
     if not isinstance(lstm, LSTMParams):
         lstm = lstm.params()
@@ -135,18 +162,27 @@ def actor_step(
     return action, logits[0], value[0], new_state
 
 
-def _cast_params(params: ActorCriticParams, dtype) -> SimpleNamespace:
-    """The parameters cast to `dtype` (differentiable casts), with the
-    attributes actor_critic_forward reads; `lstm` an LSTMParams tuple."""
-    def cast(t):
-        return None if t is None else t.to(dtype)
+def _cast_params(params: ActorCriticArrays, dtype) -> ActorCriticArrays:
+    """The parameters cast to `dtype` (differentiable casts)."""
+    leaves, rebuild = tree_flatten(params)
+    return rebuild([t.to(dtype) for t in leaves])
 
-    lstm = LSTMParams(*(tuple(map(cast, f)) if isinstance(f, tuple)
-                        else cast(f) for f in params.lstm.params()))
-    return SimpleNamespace(
-        lstm=lstm, **{name: cast(getattr(params, name)) for name in (
-            "embed_w", "embed_b", "policy_w", "policy_b", "value_w",
-            "value_b")})
+
+def _vtrace_losses(logits, value, batch, gamma, lambda_):
+    """ops.vtrace_error on the first T logits and the values, as float32."""
+    T = batch.actions.shape[0]
+    return vtrace_error(
+        vtrace_data(logits[:T].float(), batch.behaviour_logits.float(),
+                    batch.actions, value.float(), batch.rewards.float(),
+                    None),
+        gamma, lambda_)
+
+
+def _metrics(total, losses) -> dict:
+    return {"total_loss": total.detach(),
+            "policy_loss": losses.policy_loss.detach(),
+            "value_loss": losses.value_loss.detach(),
+            "entropy": losses.entropy_loss.detach()}
 
 
 def make_train_step(
@@ -185,16 +221,11 @@ def make_train_step(
     def loss_fn(params: ActorCriticParams, batch: TrainBatch):
         obs = batch.obs
         if compute_dtype is not None:
-            params = _cast_params(params, compute_dtype)
+            params = _cast_params(params.params(), compute_dtype)
             obs = obs.to(compute_dtype)
         logits, value, _ = actor_critic_forward(params, obs, None,
                                                 cfg.norm_type)
-        T = batch.actions.shape[0]
-        losses = vtrace_error(
-            vtrace_data(logits[:T].float(), batch.behaviour_logits.float(),
-                        batch.actions, value.float(), batch.rewards.float(),
-                        None),
-            gamma, lambda_)
+        losses = _vtrace_losses(logits, value, batch, gamma, lambda_)
         total = (losses.policy_loss + value_coef * losses.value_loss
                  - entropy_coef * losses.entropy_loss)
         return total, losses
@@ -204,9 +235,109 @@ def make_train_step(
         total, losses = loss_fn(params, batch)
         total.backward()
         optimizer.step()
-        return {"total_loss": total.detach(),
-                "policy_loss": losses.policy_loss.detach(),
-                "value_loss": losses.value_loss.detach(),
-                "entropy": losses.entropy_loss.detach()}
+        return _metrics(total, losses)
+
+    return train_step
+
+
+def actor_critic_shardings(mesh, num_layers: int) -> ActorCriticArrays:
+    """The JAX dryrun's placement of the parameters (__graft_entry__.py:
+    98-103), a NamedSharding per leaf: the LSTM's gate matrices, bias and
+    LayerNorm parameters sharded on the 4H gate dimension over the "model"
+    axis (parallel.lstm_param_shardings), the policy head on the actions
+    (policy_w (None, "model"), policy_b ("model",)), the embedding and the
+    value head replicated.  On a mesh without a "model" axis every leaf is
+    replicated.  `parallel.shard_params(params.params(), shardings)` gives
+    this rank's shards, as `jax.device_put(params, shardings)` places them;
+    `parallel.gather_params` the global tree back."""
+    model = MODEL_AXIS if MODEL_AXIS in mesh.shape else None
+    rep = replicated(mesh)
+    return ActorCriticArrays(
+        rep, rep, lstm_param_shardings(mesh, num_layers, model),
+        NamedSharding(mesh, (None, model)), NamedSharding(mesh, (model,)),
+        rep, rep)
+
+
+def make_sharded_train_step(
+    cfg: ActorCriticConfig,
+    optimizer: torch.optim.Optimizer,
+    mesh,
+    gamma: float = 0.99,
+    lambda_: float = 0.95,
+    value_coef: float = 0.5,
+    entropy_coef: float = 0.01,
+    compute_dtype=None,
+):
+    """The V-trace training step over a data x model mesh of ranks,
+    `train_step(params, batch) -> metrics`: the counterpart of the JAX
+    package's make_train_step jitted with __graft_entry__.py's shardings
+    (:81-110), where GSPMD places the collectives; here they are explicit,
+    all in parallel._comm.  It gives the unsharded step's result, up to
+    the order of the sums.
+
+    `params` is an ActorCriticParams of this rank's shards, placed by
+    `actor_critic_shardings(mesh, cfg.num_layers)` (from the
+    global parameters: `ActorCriticParams(*parallel.shard_params(
+    global_params.params(), shardings))`).  `optimizer` holds
+    `params.parameters()`, so each rank keeps and updates its own shards;
+    Adam is elementwise, so this is optax.adam on the whole tensors.
+    `batch` is this rank's shard of the global TrainBatch, dim 1 over the
+    "data" axis (`parallel.shard_batch_pytree(mesh, batch,
+    TrainBatch(1, 1, 1, 1))`, or `TrajectoryBuffer.sample_batch(mesh=)`'s
+    fields).  The step returns the JAX step's four metrics as global means,
+    bitwise equal on every rank.
+
+    Forward: each layer's sharded LSTM leaves are all-gathered over the
+    model axis before `network.lstm_fused`, so every layer takes the
+    unsharded step's route (the kernels run the whole recurrence in one
+    launch, which cannot be split over processes); each gather's backward
+    hands a rank its slice of the gate columns.  The policy head computes
+    this rank's slice of the logits, gathered along the actions before the
+    categorical head (its input's gradient summed over the model axis,
+    `_comm.fan_out`); the embedding and the value head are replicated.
+    Loss: `ops.vtrace_error` on this rank's batch shard, its three losses
+    taken to global means over the data axis (`_comm.reduce`, whose
+    backward gives each rank 1/K of the gradient).  Backward: every
+    gradient is summed over the data axis in rank order (one gather of all
+    of them, then a sum); the model ranks of one data group compute the
+    same replicated parts, so nothing is summed over the model axis.  With
+    `compute_dtype` the casts follow the gathers, so the gradients reach
+    the float32 masters through them.  On a mesh without a "model" axis
+    this is the data-parallel step (every leaf replicated)."""
+    model = MODEL_AXIS if MODEL_AXIS in mesh.shape else None
+    shardings = actor_critic_shardings(mesh, cfg.num_layers)
+
+    def loss_fn(params: ActorCriticParams, batch: TrainBatch):
+        local = params.params()
+        p = local._replace(lstm=gather_params(local.lstm, shardings.lstm))
+        obs = batch.obs
+        if compute_dtype is not None:
+            p = _cast_params(p, compute_dtype)
+            obs = obs.to(compute_dtype)
+        x = torch.relu(torch.matmul(obs, p.embed_w) + p.embed_b)
+        y, _ = lstm_fused(p.lstm, x, None, cfg.norm_type)
+        y_policy = fan_out(y, mesh, model) if model else y
+        logits = (torch.matmul(y_policy, p.policy_w) + p.policy_b).float()
+        if model:
+            logits = all_gather(logits, mesh, model, logits.ndim - 1)
+        value = torch.matmul(y, p.value_w[:, 0]) + p.value_b[0]
+        losses = _vtrace_losses(logits, value, batch, gamma, lambda_)
+        losses = type(losses)(*(reduce(l, mesh, DATA_AXIS) for l in losses))
+        total = (losses.policy_loss + value_coef * losses.value_loss
+                 - entropy_coef * losses.entropy_loss)
+        return total, losses
+
+    def train_step(params: ActorCriticParams, batch: TrainBatch) -> dict:
+        optimizer.zero_grad(set_to_none=True)
+        total, losses = loss_fn(params, batch)
+        total.backward()
+        with torch.no_grad():
+            grads = [p.grad for p in params.parameters()]
+            summed = reduce(torch.cat([g.reshape(-1) for g in grads]), mesh,
+                            DATA_AXIS, "sum")
+            for g, s in zip(grads, summed.split([g.numel() for g in grads])):
+                g.copy_(s.view_as(g))
+        optimizer.step()
+        return _metrics(total, losses)
 
     return train_step

@@ -21,7 +21,7 @@ from torch import nn
 
 from ..network.lstm import LSTMWeights
 from ..origin.rnn import LSTMParams
-from .actor_critic_lstm import ActorCriticParams
+from .actor_critic_lstm import ActorCriticArrays, ActorCriticParams
 from .entity_selection import EntitySelectionParams
 
 __all__ = ["ActorCriticArrays", "EntitySelectionArrays", "AlphaStarArrays",
@@ -34,17 +34,6 @@ _SEL_FIELDS = ("w_ih", "w_hh", "bias", "w_query")
 _AS_FIELDS = ("ent_w", "ent_b", "spatial_w", "core", "act_w", "val_w",
               "ae_w", "sel")
 _R2D2_FIELDS = ("embed_w", "embed_b", "lstm", "q_w", "q_b")
-
-
-class ActorCriticArrays(NamedTuple):
-    """ActorCriticParams as numpy arrays, field for field the JAX tuple."""
-    embed_w: np.ndarray
-    embed_b: np.ndarray
-    lstm: LSTMParams
-    policy_w: np.ndarray
-    policy_b: np.ndarray
-    value_w: np.ndarray
-    value_b: np.ndarray
 
 
 class EntitySelectionArrays(NamedTuple):

@@ -19,6 +19,8 @@ from .mesh import (
     batch_sharding,
     shard_batch_pytree,
     replicated,
+    shard_params,
+    gather_params,
 )
 from .dscan import (
     linear_recurrence_reverse_sharded,
@@ -33,4 +35,4 @@ from .api import (
     upgo_loss_time_sharded,
     vtrace_error_time_sharded,
 )
-from .runtime import initialize, global_batch_from_host_local
+from .runtime import initialize, global_batch_from_host_local, spawn_world

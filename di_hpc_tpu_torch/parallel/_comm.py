@@ -26,7 +26,12 @@ work (each rank computes something else with it); the backwards follow:
    bitwise the same value and a repeated run gets the same bits (no
    all-reduce, whose summation order is the backend's).  Its backward hands
    each rank its share of the gradient (all of it for a sum, 1/K for a
-   mean).
+   mean);
+ - `fan_out(x, mesh, axis)`: a replicated tensor that each rank uses for
+   its own part of the work (the activations entering a layer whose
+   output columns are split over the axis).  The identity forward; its
+   backward sums every rank's gradient in rank order, as JAX transposes
+   the replication into a psum.
 
 On an axis of size 1 each is the identity (a world of one has no process
 group).  Under gloo a CUDA operand is copied to the host, gathered there
@@ -39,7 +44,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather", "shard", "window", "reduce", "axis_split"]
+__all__ = ["all_gather", "shard", "window", "reduce", "fan_out",
+           "axis_split"]
 
 
 def axis_split(n: int, mesh, axis: str, what: str):
@@ -142,6 +148,18 @@ class _Reduce(torch.autograd.Function):
         return grad * ctx.scale, None, None, None
 
 
+class _FanOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.meta = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis = ctx.meta
+        return _rank_order_sum(_gather_pieces(grad, mesh, axis)), None, None
+
+
 def all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
                each_own: bool = False) -> torch.Tensor:
     return _AllGather.apply(x, mesh, axis, dim, each_own)
@@ -161,3 +179,7 @@ def reduce(x: torch.Tensor, mesh, axis: str, op: str = "mean"
     if op not in ("mean", "sum"):
         raise ValueError(f"reduce: op must be 'mean' or 'sum', got {op!r}")
     return _Reduce.apply(x, mesh, axis, op == "mean")
+
+
+def fan_out(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    return _FanOut.apply(x, mesh, axis)

@@ -23,7 +23,8 @@ import torch.distributed as dist
 from ..utils.checkpoint import tree_flatten
 
 __all__ = ["DATA_AXIS", "TIME_AXIS", "MODEL_AXIS", "Mesh", "NamedSharding",
-           "make_mesh", "batch_sharding", "shard_batch_pytree", "replicated"]
+           "make_mesh", "batch_sharding", "shard_batch_pytree", "replicated",
+           "shard_params", "gather_params"]
 
 DATA_AXIS = "data"
 TIME_AXIS = "time"
@@ -168,3 +169,64 @@ def shard_batch_pytree(mesh: Mesh, tree, batch_dims, axis: str = DATA_AXIS):
 
 def replicated(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, ())
+
+
+def sharding_leaves(shardings) -> list:
+    """The NamedShardings of a sharding tree, in tree_flatten's leaf order
+    (a NamedSharding is a leaf, though it is a tuple)."""
+    if isinstance(shardings, NamedSharding):
+        return [shardings]
+    if shardings is None:
+        return []
+    return [leaf for child in shardings for leaf in sharding_leaves(child)]
+
+
+def _with_specs(tree, shardings):
+    leaves, rebuild = tree_flatten(tree)
+    specs = sharding_leaves(shardings)
+    if len(specs) != len(leaves):
+        raise ValueError(f"{len(specs)} shardings for {len(leaves)} leaves")
+    return leaves, rebuild, specs
+
+
+def _sharded_dims(sharding: NamedSharding):
+    return [(d, axis) for d, axis in enumerate(sharding.spec) if axis]
+
+
+def shard_params(tree, shardings):
+    """This rank's shards of a tree of global tensors (NamedTuples and
+    tuples, as utils.checkpoint.tree_flatten walks them), placed as
+    `jax.device_put(tree, shardings)` places them: every dimension that a
+    leaf's NamedSharding names an axis for is cut to this rank's piece
+    along that axis.  `shardings` has the tree's structure, a NamedSharding
+    per leaf.  The shards are new tensors, detached from the tree; a
+    replicated leaf comes back as a copy.  Raises ValueError for a
+    dimension that does not tile its axis."""
+    from ._comm import shard
+
+    leaves, rebuild, specs = _with_specs(tree, shardings)
+    out = []
+    with torch.no_grad():
+        for leaf, sh in zip(leaves, specs):
+            x = torch.as_tensor(leaf)
+            for d, axis in _sharded_dims(sh):
+                x = shard(x, sh.mesh, axis, d)
+            out.append(x.detach().clone())
+    return rebuild(out)
+
+
+def gather_params(tree, shardings):
+    """The global tree from every rank's shards, `shard_params`' inverse:
+    each sharded dimension all-gathered over its axis in rank order.  The
+    gathers are differentiable: a leaf's gradient comes back as this
+    rank's slice of the global leaf's (every rank computes the same
+    function of the whole)."""
+    from ._comm import all_gather
+
+    leaves, rebuild, specs = _with_specs(tree, shardings)
+    out = []
+    for leaf, sh in zip(leaves, specs):
+        for d, axis in _sharded_dims(sh):
+            leaf = all_gather(leaf, sh.mesh, axis, d)
+        out.append(leaf)
+    return rebuild(out)

@@ -10,14 +10,13 @@ error messages word for word.
 
 import threading
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 from di_hpc_tpu import data as jax_data
 
-from di_hpc_tpu_torch import data
+from di_hpc_tpu_torch import data, parallel
 
 
 def _traj(rng, T=8, obs=4):
@@ -185,11 +184,22 @@ def test_64_bit_fields_land_as_jax_narrows_them(pop):
 
 
 def test_mesh_is_not_supported_yet():
+    """The mesh= branch, which this test once showed to be missing, in a
+    world of one (no process group): the batch lands on the mesh's device
+    (the CPU here, whatever `device` says) with the unsharded call's bits,
+    and the same trajectories are popped.  Worlds of two ranks:
+    tests/test_torch_multichip.py."""
     rng = np.random.default_rng(6)
-    buf = data.TrajectoryBuffer(capacity=8)
-    for _ in range(4):
-        buf.add(_traj(rng))
-    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
-        buf.sample_batch(2, mesh=mesh, device="cpu")
-    assert len(buf) == 4            # nothing was popped
+    trajs = [_traj(rng) for _ in range(4)]
+    bufs = [data.TrajectoryBuffer(capacity=8) for _ in range(2)]
+    for buf in bufs:
+        for t in trajs:
+            buf.add(t)
+    mesh = parallel.make_mesh(devices=["cpu"])
+    got = bufs[0].sample_batch(2, mesh=mesh, device="cuda")
+    want = bufs[1].sample_batch(2, device="cpu")
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].device.type == "cpu" and got[k].dtype == want[k].dtype
+        assert got[k].numpy().tobytes() == want[k].numpy().tobytes(), k
+    assert len(bufs[0]) == len(bufs[1]) == 2

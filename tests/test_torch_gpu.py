@@ -20,7 +20,9 @@ the same call on the CPU, with the route each layer took; and the host data
 plane: ragged padding from numpy and from CUDA inputs bitwise equal to the
 CPU's, `TrajectoryBuffer.sample_batch` on the card equal to the CPU's, one
 episodic A2C step (kernels 8 and 6 once per bucket) against the CPU, and a
-checkpoint round trip of card parameters and Adam state.
+checkpoint round trip of card parameters and Adam state; the sharded train
+step in a world of two ranks on the card against the unsharded step, and
+`sample_batch(mesh=)` in a world of one.
 
 Every test here is marked `gpu` and skips without a card (decided in the
 `cuda` fixture, never at import).  This file imports no JAX, so it also
@@ -1765,6 +1767,9 @@ def test_sample_batch_of_64_bit_fields_takes_the_vtrace_kernels(cuda):
 
 
 SHARDED_TAG = "SHARDED_SCAN "
+# Runs this file's __main__ (a worker of a spawned world) in a rank process.
+RUN_THIS_FILE = ("import runpy; runpy.run_path('tests/test_torch_gpu.py', "
+                 "run_name='__main__')")
 
 
 def _sharded_scan_worker(workdir, rank: int, world: int) -> int:
@@ -1803,9 +1808,8 @@ def test_time_sharded_scan_on_two_ranks_on_the_card(cuda, tmp_path):
     The world is killed at chip_smoke.PAR_TIMEOUT_S."""
     import json
 
-    run_this_file = ("import runpy; runpy.run_path('tests/test_torch_gpu.py', "
-                     "run_name='__main__')")
-    outs = chip_smoke.spawn_world(["-c", run_this_file, str(tmp_path)], 2,
+    outs = chip_smoke.spawn_world(["-c", RUN_THIS_FILE, "scan",
+                                   str(tmp_path)], 2,
                                   chip_smoke.PAR_TIMEOUT_S)
     reports = [json.loads(next(ln for ln in out.splitlines()
                                if ln.startswith(SHARDED_TAG))
@@ -1866,8 +1870,101 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
             assert g == w
 
 
+SHARDED_STEP_TAG = "SHARDED_STEP "
+
+
+def _sharded_step_worker(workdir, rank: int, world: int) -> int:
+    """One rank of test_sharded_train_step_on_two_ranks_on_the_card."""
+    import json
+
+    import torch.distributed as dist
+
+    from di_hpc_tpu_torch import entry, parallel
+    from di_hpc_tpu_torch.examples import impala_training
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.initialize(f"file://{workdir}/store", world, rank)
+    mesh = parallel.make_mesh({"data": world, "model": 1})
+    cfg = impala_training.CFG
+    params = models.init_actor_critic(cfg, torch.Generator().manual_seed(5),
+                                      "cpu")
+    arrays = models.to_numpy_params(params)
+    batch = impala_training.synthetic_batch(
+        torch.Generator().manual_seed(6), 16, 64, cfg.obs_dim,
+        cfg.action_dim, mesh.device)
+    tally = entry.LaunchTally()
+    results, checks = entry.sharded_train_steps(
+        cfg, arrays, [batch], mesh, tally=tally,
+        tolerance=chip_smoke.MC_F32_TOLERANCE)
+    print(SHARDED_STEP_TAG + json.dumps({
+        "launches": tally.launches, "routes": tally.routes,
+        "backend": dist.get_backend(), "digest": entry.digest(results),
+        "worst_grad": max(v["grad"]["max_err_over_max"]
+                          for k, v in checks["step0"].items()
+                          if k != "metrics")}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def test_sharded_train_step_on_two_ranks_on_the_card(cuda, tmp_path):
+    """A gloo world of 2 processes on the one card: one
+    models.make_sharded_train_step step of impala_training's model (H=128)
+    at a global B=64, 32 rows per rank (V1), against the unsharded step
+    (entry.sharded_train_steps, phase multichip's float32 bounds); both
+    ranks launch kernels 1, 5, 2 and 3, every layer takes the kernels, and
+    both ranks hold the same bits."""
+    import json
+
+    outs = chip_smoke.spawn_world(["-c", RUN_THIS_FILE, "step",
+                                   str(tmp_path)], 2,
+                                  chip_smoke.PAR_TIMEOUT_S)
+    reports = [json.loads(next(ln for ln in out.splitlines()
+                               if ln.startswith(SHARDED_STEP_TAG))
+                          [len(SHARDED_STEP_TAG):]) for out in outs]
+    for r in reports:
+        assert r["backend"] == "gloo"
+        assert r["routes"] == {"kernel": 2, "recurrent": 0}
+        for name in ("lstm_layer_fused", "lstm_layer_bwd_v1",
+                     "vtrace_losses", "vtrace_returns_adv"):
+            assert r["launches"][name] >= 1, (name, r["launches"])
+        assert r["launches"]["lstm_layer_bwd_v2"] == 0
+    assert reports[0]["digest"] == reports[1]["digest"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [4, 8])
+def test_layer_route_takes_the_dryrun_shards(cuda, B, dtype):
+    """The multichip dryrun's train legs run 4 (8 ranks) or 8 (4 ranks)
+    rows per rank at H=64: network.layer_route sends both to the kernels,
+    with a gradient (V1), in both dtypes."""
+    assert network.layer_route(B, 64, dtype, True, _smem_limit(cuda)) == \
+        "kernel"
+
+
+def test_sample_batch_with_a_mesh_of_one_is_the_unsharded_call(cuda):
+    """sample_batch(mesh=) in a world of one (no process group) lands on
+    the mesh's card with the unsharded call's bits and dtypes."""
+    from di_hpc_tpu_torch import data, parallel
+
+    trajs = chip_smoke.data_trajectories(np.random.default_rng(75))
+    bufs = [data.TrajectoryBuffer(capacity=len(trajs)) for _ in range(2)]
+    for buf in bufs:
+        for t in trajs:
+            buf.add(t)
+    mesh = parallel.make_mesh()
+    assert mesh.device.type == "cuda"
+    got = bufs[0].sample_batch(chip_smoke.DATA_B, mesh=mesh)
+    want = bufs[1].sample_batch(chip_smoke.DATA_B, device=cuda)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].device == want[k].device and \
+            chip_smoke.bitwise_equal(got[k], want[k]), k
+
+
 if __name__ == "__main__":
     import sys
 
-    sys.exit(_sharded_scan_worker(sys.argv[1], int(sys.argv[2]),
-                                  int(sys.argv[3])))
+    worker = {"scan": _sharded_scan_worker,
+              "step": _sharded_step_worker}[sys.argv[1]]
+    sys.exit(worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))

@@ -48,7 +48,8 @@ def test_package_imports_without_jax_or_the_jax_package():
                 "models.entity_selection", "ops.padding", "origin.padding",
                 "data", "utils.native", "utils.checkpoint",
                 "utils.profiling", "entry", "examples.episodic_a2c_padding",
-                "examples.impala_actor_learner", "parallel", "parallel.mesh",
+                "examples.impala_actor_learner", "examples.impala_training",
+                "parallel", "parallel.mesh",
                 "parallel.dscan", "parallel.api", "parallel.runtime",
                 "parallel._comm", "utils.transfer"):
         assert "di_hpc_tpu_torch." + sub in result["imported"]
