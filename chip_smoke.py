@@ -4,15 +4,15 @@
     python3 chip_smoke.py              # no arguments; needs one CUDA card
     python3 chip_smoke.py --digests    # only the LSTM and scan kernels'
                                        # output digests and ptxas lines
-    python3 chip_smoke.py --profile    # only phase 13 (profile)
-    python3 chip_smoke.py --parallel   # only phases 1, 2, 11 and 12; on as
+    python3 chip_smoke.py --profile    # only phase 14 (profile)
+    python3 chip_smoke.py --parallel   # only phases 1, 2, 12 and 13; on as
                                        # many cards as the worlds have
                                        # ranks, one rank per card over NCCL
     python3 chip_smoke.py --parallel-worker DIR RANK WORLD
-                                       # one rank of phase 11, which
+                                       # one rank of phase 12, which
                                        # spawns them
     python3 chip_smoke.py --multichip-worker DIR RANK WORLD
-                                       # one rank of phase 12's full-width
+                                       # one rank of phase 13's full-width
                                        # world, which spawns them
 
 Phases, each printing one JSON line (`{"phase": ...}`):
@@ -131,9 +131,10 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 `ops.td_lambda_error` (unit weight with the gradient in
                 value, and a (B,) weight), `ops.ppo_error_with_logp_old`
                 and `ops.ppo_error` with their gradients (B=4096, N=128),
-                then the PPO trainer of examples/ppo_training.py (obs 32,
-                hidden 64, 128 actions, rollouts T=16, B=256; 2 iterations
-                of GAE, logp_old and 4 Adam epochs).  Every output, each
+                then the PPO trainer of di_hpc_tpu_torch.examples.
+                ppo_training (obs 32, hidden 64, 128 actions, rollouts
+                T=16, B=256; 2 iterations of GAE, logp_old and 4 Adam
+                epochs).  Every output, each
                 epoch's metrics and gradients and the final parameters
                 against the same calls on the CPU; then ms per GAE call, per
                 TD(lambda) forward + backward and per PPO iteration.
@@ -145,7 +146,8 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 `ops.upgo_loss` with its gradient at T=128, B=512, N=128,
                 `network.scatter_connection` (add and cover) with its
                 gradient at B=M=N=256, 16x16, then 3 steps of the train step
-                of examples/alphastar_policy_training.py (its configuration:
+                of di_hpc_tpu_torch.examples.alphastar_policy_training (the
+                JAX example's configuration:
                 T=16, B=8, 32 entities, a 128-wide LN-LSTM core, 6 greedy
                 selections; Adam(lr=3e-4); synthetic batches).  Every output,
                 each step's metrics and gradients and the final parameters
@@ -160,14 +162,36 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 10; bitwise repeatable), `ops.qrdqn_nstep_td_error` (tau=64,
                 B=4096, N=64) and `ops.iqn_nstep_td_error` (tau=33,
                 tau'=34, B=64, N=8, nstep 10, kappa 0.9), then 3 steps of
-                the train step of examples/r2d2_training.py (its
-                configuration: S=20, burn-in 4, B=32, obs 16, a 128-wide
+                the train step of di_hpc_tpu_torch.examples.r2d2_training
+                (the JAX example's configuration: S=20, burn-in 4, B=32,
+                obs 16, a 128-wide
                 LN-LSTM, 8 actions, nstep 3; Adam(lr=1e-3); synthetic
                 replay samples), whose LSTM takes kernel 1 and kernel 5
                 (V1) on every layer.  Every output, gradient, step's loss,
                 priorities and updated parameters against the same calls
                 on the CPU; then ms per op call and per R2D2 step.
- 10. hostdata -- the host data plane and its two examples.  Ragged padding
+ 10. replay -- the replay learners and the five examples' main(), counts
+                set to 0 just before each part and read just after: 3
+                steps each of the C51 trainer (di_hpc_tpu_torch.examples.
+                c51_training: B=128, obs 32, hidden 64, 8 actions, 51
+                atoms, nstep 3) and the QR-DQN and IQN trainers
+                (quantile_dqn_training: B=64, obs 24, hidden 64, 8 actions,
+                tau = tau' = 32, 64 cosine features, nstep 3, kappa 1) in
+                the JAX examples' configurations, each step against the
+                same step on the CPU started from the card's parameters and
+                Adam state before it and given the card's next action (held
+                against the CPU's own argmax up to near ties): the loss and
+                per-sample TD errors at REPLAY_RTOL/REPLAY_ATOL, every
+                gradient, the updated parameters (check_adam_params); host
+                ms per step.  These paths run no kernel, and the phase
+                fails if one launches.  Then the main() of c51_training,
+                quantile_dqn_training, ppo_training,
+                alphastar_policy_training and r2d2_training once each at
+                its defaults (the JAX examples'), their printout and
+                seconds kept, their parameters finite; these launches are
+                path `examples` (kernels 1, 5, 2, 3, 7, 11, 12), every LSTM
+                layer on the kernels.
+ 11. hostdata -- the host data plane and its two examples.  Ragged padding
                 at the JAX bench's configuration (bench.py:890-903: B=64
                 float32 items, 1D 32-128, 2D 48-80 x 32-64, 3D 24-32 x 24-32
                 x 32-40), each ungrouped, grouped by the oracle DP and by
@@ -196,7 +220,7 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 learner and episodic step; `utils.bench_fn` and
                 `utils.roofline` on `ops.gae` at T=1024, B=4096 beside phase
                 kernels' GAE row.
- 11. parallel -- the parallel layer (di_hpc_tpu_torch.parallel) in a gloo
+ 12. parallel -- the parallel layer (di_hpc_tpu_torch.parallel) in a gloo
                 world of 4 processes on the one card, each on cuda:0,
                 spawned with a deadline (PAR_TIMEOUT_S) that kills the
                 world: `linear_recurrence_{reverse,forward}_sharded` on the
@@ -220,7 +244,7 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 results must equal rank 0's bit for bit.  The host clocks
                 are four processes sharing one card, with every collective
                 staged through the host: not a scaling figure.
- 12. multichip -- the data x model sharded train step
+ 13. multichip -- the data x model sharded train step
                 (models.make_sharded_train_step) on the one card, three
                 parts: `entry.dryrun_multichip(4)`, a gloo world of 4 rank
                 processes on a {data: 2, model: 2} mesh running the JAX
@@ -248,14 +272,15 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 (MC_PART_KERNELS); every sharded LSTM layer must take the
                 kernels (`lstm_fused.routes`).  Under `--parallel` on 4
                 cards each world takes NCCL, one rank per card.
- 13. profile -- torch.profiler over one more run of each of the timed calls
+ 14. profile -- torch.profiler over one more run of each of the timed calls
                 (forward, serving loop, V-trace, train step, the three
                 on-policy calls, the UPGO loss, the AlphaStar train step and
                 the bf16 train step), of the f32 and bf16 train steps at
                 B=32, of the weighted `ops.td_lambda_error` at T=1024,
                 B=4096, of phase upgo's four scan entry points, of phase
-                nstep's five TD ops and R2D2 step and of phase hostdata's
-                episodic step and learner step: device busy time, idle
+                nstep's five TD ops and R2D2 step, of phase replay's C51,
+                QR-DQN and IQN steps and of phase hostdata's episodic step
+                and learner step: device busy time, idle
                 share of the window and the top kernels by device time.
 
 Then one `{"kernels": [...]}` line, the nvidia-smi line, and, last, the
@@ -265,7 +290,7 @@ backward's inputs from the plain forward) and their ptxas lines, and of the
 scan kernels' (2, 3, 6-12) outputs at T=1024, B=4096 and at the ragged
 T=1000, B=4100: run in two checkouts, they show whether a change left those
 kernels bitwise the same.
-With `--profile` it prints only phase 13's line, which runs in an older
+With `--profile` it prints only phase 14's line, which runs in an older
 checkout too.  Any
 failure prints its phase
 with `"ok": false` and exits 1; no card (or no port beside this script)
@@ -274,9 +299,11 @@ exits non-zero before any result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import hashlib
 import importlib.util
+import io
 import json
 import os
 import statistics
@@ -1808,12 +1835,32 @@ def phase_bf16(dev) -> dict:
 
 # ------------------------------------------------------------ phase 7 ----
 
+def example_modules() -> SimpleNamespace:
+    """The port's PPO, AlphaStar, R2D2, C51 and quantile-DQN examples,
+    imported here and not at the top, so that --digests and --profile still
+    run in an older checkout that lacks them."""
+    from di_hpc_tpu_torch.examples import (
+        alphastar_policy_training, c51_training, ppo_training,
+        quantile_dqn_training, r2d2_training)
+    return SimpleNamespace(ppo=ppo_training,
+                           alphastar=alphastar_policy_training,
+                           r2d2=r2d2_training, c51=c51_training,
+                           quantile=quantile_dqn_training)
+
+
+def have_examples() -> bool:
+    """Whether this checkout has the modules of example_modules()."""
+    return importlib.util.find_spec(
+        "di_hpc_tpu_torch.examples.ppo_training") is not None
+
+
 T_OP, B_OP = 1024, 4096             # GAE and TD(lambda): bench.py:550, :676
 B_PPO, N_PPO = 4096, 128            # PPO: bench.py:441
-# The PPO trainer of examples/ppo_training.py with actions=128 and rollouts
-# of T=16, B=256: each epoch's loss runs on a flat (4096, 128) batch.
+# The PPO trainer of di_hpc_tpu_torch.examples.ppo_training with
+# actions=128 and rollouts of T=16, B=256: each epoch's loss runs on a flat
+# (4096, 128) batch.
 PPO_CFG = {"obs_dim": 32, "hidden": 64, "actions": 128, "T": 16, "B": 256}
-PPO_ITERS, PPO_EPOCHS, PPO_LR = 2, 4, 3e-4
+PPO_ITERS, PPO_EPOCHS = 2, 4
 ONPOLICY_KERNELS = ("gae", "lambda_returns", "td_lambda_loss",
                     "td_lambda_err")
 
@@ -1883,75 +1930,24 @@ def ppo_rollouts(rng, iters, obs_dim, actions, T, B, **_):
             for _ in range(iters)]
 
 
-def ppo_forward(p, obs):
-    h = torch.tanh(obs @ p["w1"] + p["b1"])
-    return h @ p["policy_w"] + p["policy_b"], (h @ p["value_w"]
-                                               + p["value_b"])[..., 0]
-
-
-def ppo_collect(p, obs, reward, gumbel):
-    """Roll the policy over the observations and compute the GAE
-    advantages and the old policy's log-prob, once per batch
-    (examples/ppo_training.py:67-82)."""
-    T = reward.shape[0]
-    with torch.no_grad():
-        logits, value = ppo_forward(p, obs)
-        action = torch.argmax(logits[:T] + gumbel, dim=-1)
-        adv = ops.gae(ops.gae_data(value, reward), gamma=0.99, lambda_=0.95)
-        return {"obs": obs[:T], "action": action,
-                "logp_old": ops.logp(logits[:T], action),
-                "value_old": value[:T], "adv": adv,
-                "return_": adv + value[:T]}
-
-
-def ppo_loss(p, batch):
-    """One epoch's loss on the flat (T*B, ...) batch
-    (examples/ppo_training.py:84-98): (total, metrics)."""
-    flat = lambda x: x.reshape((-1,) + x.shape[2:])
-    logits, value = ppo_forward(p, batch["obs"])
-    (pol, vl, ent), (kl, frac) = ops.ppo_error_with_logp_old(
-        ops.ppo_fast_data(flat(logits), flat(batch["logp_old"]),
-                          flat(batch["action"]), flat(value),
-                          flat(batch["value_old"]), flat(batch["adv"]),
-                          flat(batch["return_"]), None),
-        clip_ratio=0.2, use_value_clip=True, dual_clip=None)
-    total = pol + 0.5 * vl - 0.01 * ent
-    return total, {"total": total, "policy": pol, "value": vl,
-                   "entropy": ent, "approx_kl": kl, "clipfrac": frac}
-
-
-def ppo_iteration(p, opt, rollout, epochs):
-    """Collect, then `epochs` Adam steps on the batch: each epoch's metrics
-    (detached) and gradients."""
-    batch = ppo_collect(p, *rollout)
-    log = []
-    for _ in range(epochs):
-        total, metrics = ppo_loss(p, batch)
-        opt.zero_grad()
-        total.backward()
-        log.append(({k: v.detach() for k, v in metrics.items()},
-                    {k: v.grad.clone() for k, v in p.items()}))
-        opt.step()
-    return log
-
-
 def ppo_setup(arrays, rollouts_np, dev):
-    """Parameters (copies: Adam updates them in place), their Adam and the
-    rollouts, on dev."""
-    p = {k: torch.tensor(v, device=dev, requires_grad=True)
-         for k, v in arrays.items()}
+    """The example's parameters (a PPOParams module: Adam updates them in
+    place), their Adam and the rollouts, on dev."""
+    p = models.from_jax_params(models.PPOArrays(**arrays), device=dev)
     rollouts = [tuple(torch.from_numpy(a).to(dev) for a in r)
                 for r in rollouts_np]
-    return p, torch.optim.Adam(p.values(), lr=PPO_LR), rollouts
+    return (p, torch.optim.Adam(p.parameters(), lr=example_modules().ppo.LR),
+            rollouts)
 
 
 def ppo_train(arrays, rollouts_np, dev):
-    """PPO_ITERS iterations of PPO_EPOCHS epochs: the per-epoch log, the
-    final parameters."""
+    """PPO_ITERS iterations of PPO_EPOCHS epochs of the example's
+    `iteration`: the per-epoch log, the final parameters by name."""
+    ppo = example_modules().ppo
     p, opt, rollouts = ppo_setup(arrays, rollouts_np, dev)
     log = [entry for r in rollouts
-           for entry in ppo_iteration(p, opt, r, PPO_EPOCHS)]
-    return log, p
+           for entry in ppo.iteration(p, opt, r, PPO_EPOCHS)]
+    return log, dict(p.named_parameters())
 
 
 def check_adam_params(name, got, want, grads, lr, steps) -> dict:
@@ -2005,7 +2001,8 @@ def phase_onpolicy(dev) -> dict:
             compare(f"ppo epoch {i} grad {k}", [g[k]], [rg[k]], atol=0.0,
                     atol_rel=GRAD_ATOL_REL)
     result["ppo_params_vs_cpu"] = check_adam_params(
-        "ppo", p, ref_p, [g for _, g in ref_log], PPO_LR, len(ref_log))
+        "ppo", p, ref_p, [g for _, g in ref_log], example_modules().ppo.LR,
+        len(ref_log))
     result["ppo_epochs"] = [{k: float(v) for k, v in m.items()}
                             for m, _ in log]
     result["td_lambda"] = float(out["td_lambda"])
@@ -2019,25 +2016,26 @@ def phase_onpolicy(dev) -> dict:
     return result
 
 
-def onpolicy_timed_calls(x, ppo_np, rollouts_np, dev):
+def onpolicy_timed_calls(x, ppo_np, rollouts_np, dev, examples=True):
     """The three end-to-end calls that are timed: one ops.gae call, one
-    td_lambda_error forward + backward, one PPO iteration (collect and
-    PPO_EPOCHS Adam steps)."""
+    td_lambda_error forward + backward and, with `examples`, one PPO
+    iteration (collect and PPO_EPOCHS Adam steps)."""
     value = x["value"].clone().requires_grad_()
-    p, opt, rollouts = ppo_setup(ppo_np, rollouts_np, dev)
 
     def td_lambda():
         value.grad = None
         ops.td_lambda_error(ops.td_lambda_data(value, x["reward"], None),
                             0.9, 0.8).backward()
 
-    return {
+    calls = {
         "gae_T1024_B4096": lambda: ops.gae(ops.gae_data(
             x["value"], x["reward"]), 0.99, 0.97),
-        "td_lambda_fwd_bwd_T1024_B4096": td_lambda,
-        "ppo_iteration_T16_B256_N128": lambda: ppo_iteration(
-            p, opt, rollouts[0], PPO_EPOCHS),
-    }
+        "td_lambda_fwd_bwd_T1024_B4096": td_lambda}
+    if examples:
+        p, opt, rollouts = ppo_setup(ppo_np, rollouts_np, dev)
+        calls["ppo_iteration_T16_B256_N128"] = lambda: example_modules(
+            ).ppo.iteration(p, opt, rollouts[0], PPO_EPOCHS)
+    return calls
 
 
 # ------------------------------------------------------------ phase 8 ----
@@ -2045,11 +2043,17 @@ def onpolicy_timed_calls(x, ppo_np, rollouts_np, dev):
 T_SC, B_SC = 1024, 4096                 # the scan entry points: bench.py:550
 T_UG, B_UG, N_UG = 128, 512, 128        # ops.upgo_loss: bench.py:651
 SC_B, SC_M, SC_N, SC_HW = 256, 256, 256, (16, 16)   # scatter: bench.py:609
-# The train step of examples/alphastar_policy_training.py with its own
-# configuration (main's defaults, :61-63), Adam(lr=3e-4), synthetic batches.
+# The train step of di_hpc_tpu_torch.examples.alphastar_policy_training in
+# the JAX example's configuration (main's defaults,
+# examples/alphastar_policy_training.py:61-63), its Adam(lr=3e-4), synthetic
+# batches.
 AS_CFG = {"T": 16, "B": 8, "M": 32, "De": 16, "N": 32, "H": 8, "W": 8,
           "F": 64, "Hc": 128, "A": 8, "Hs": 64}
-AS_SELECTIONS, AS_LR, AS_STEPS = 6, 3e-4, 3
+AS_SELECTIONS, AS_STEPS = 6, 3
+# The train step's arguments besides the batch: greedy selection (no
+# generator), as the card-against-CPU checks need.
+AS_STEP = {"H": AS_CFG["H"], "W": AS_CFG["W"],
+           "max_selections": AS_SELECTIONS}
 UPGO_KERNELS = ("linear_scan", "upgo_loss", "upgo_advantages",
                 "lstm_layer_fused", "lstm_layer_bwd_v1", "vtrace_losses",
                 "vtrace_returns_adv")
@@ -2155,69 +2159,13 @@ def alphastar_batches(rng, steps, T, B, M, De, H, W, A, **_):
             for _ in range(steps)]
 
 
-def alphastar_loss(p, x, max_selections):
-    """The example's loss_fn (:82-129) on the port: entity encoder, the
-    scatter connection (add), the LN-LSTM core, V-trace and UPGO on the
-    action-type head, the greedy selected-units head with its REINFORCE
-    term.  Returns (total, the example's metrics)."""
-    T1, B, M, N = x["ent_feats"].shape[:3] + (p.ent_w.shape[1],)
-    H, W = x["H"], x["W"]
-    emb = torch.tanh(x["ent_feats"] @ p.ent_w + p.ent_b)          # (T+1,B,M,N)
-    spatial = network.scatter_connection(
-        emb.reshape(T1 * B, M, N), (H, W),
-        x["locations"].reshape(T1 * B, M, 2), "add")
-    spatial = spatial.reshape(T1, B, N * H * W) @ p.spatial_w
-    core_in = torch.cat([emb.mean(dim=2), torch.tanh(spatial)], dim=-1)
-    y, _ = network.lstm_fused(p.core.params(), core_in, None, "LN")
-    value = y @ p.val_w                                            # (T+1, B)
-    logits = y[:-1] @ p.act_w                                      # (T, B, A)
-
-    actions, rewards = x["actions"], x["rewards"]
-    vt = ops.vtrace_error(ops.vtrace_data(logits, x["behaviour"], actions,
-                                          value, rewards, None))
-    logp_b = ops.logp(x["behaviour"], actions).detach()
-    rhos = torch.clamp(torch.exp(ops.logp(logits, actions).detach() - logp_b),
-                       max=1.0)
-    upgo = ops.upgo_loss(logits, rhos, actions, rewards, value)
-
-    ae0 = torch.tanh(y[-1] @ p.ae_w)                               # (B, N)
-    Hs = p.sel.w_hh.shape[0]
-    zeros = torch.zeros((B, Hs), device=y.device)
-    entity_num = x["entity_num"]
-    selected, sel_logits, _, _ = models.select_entities(
-        p.sel, emb[-1], torch.ones((B, M), dtype=torch.bool,
-                                   device=y.device),
-        entity_num, ae0, (zeros, zeros), max_selections)
-    is_end = (selected == entity_num[None, :]).to(torch.int32)
-    after_end = (torch.cumsum(is_end, dim=0) - is_end) > 0
-    sel_logp = torch.where(after_end, torch.zeros((), device=y.device),
-                           ops.logp(sel_logits, selected))         # (S, B)
-    adv = (rewards.sum(dim=0) - value[0]).detach()
-    sel_loss = -torch.mean(adv * sel_logp.sum(dim=0))
-
-    total = (vt.policy_loss + 0.5 * vt.value_loss - 0.01 * vt.entropy_loss
-             + 0.2 * upgo + 0.1 * sel_loss)
-    return total, {"total": total, "pg": vt.policy_loss,
-                   "value": vt.value_loss, "upgo": upgo, "select": sel_loss}
-
-
-def alphastar_setup(arrays, batches_np, dev, H, W, **_):
+def alphastar_setup(arrays, batches_np, dev):
     """Params on dev (copies: Adam updates them in place), their Adam and
     the batches, on dev."""
     p = models.from_jax_params(arrays, device=dev)
-    batches = [{**to_dev(b, dev), "H": H, "W": W} for b in batches_np]
-    return p, torch.optim.Adam(p.parameters(), lr=AS_LR), batches
-
-
-def alphastar_step(p, opt, batch):
-    """One train step: loss, backward, Adam.  Returns the metrics
-    (detached) and the gradients by parameter name."""
-    opt.zero_grad()
-    total, metrics = alphastar_loss(p, batch, AS_SELECTIONS)
-    total.backward()
-    grads = {k: v.grad.clone() for k, v in p.named_parameters()}
-    opt.step()
-    return {k: v.detach() for k, v in metrics.items()}, grads
+    batches = [to_dev(b, dev) for b in batches_np]
+    lr = example_modules().alphastar.LR
+    return p, torch.optim.Adam(p.parameters(), lr=lr), batches
 
 
 def _cpu_copy(state: dict) -> dict:
@@ -2234,12 +2182,13 @@ def phase_upgo(dev) -> dict:
 
     kernels.reset_launch_counts()
     out = run_upgo_ops(x)
-    p, opt, batches = alphastar_setup(as_np, batches_np, dev, **AS_CFG)
+    p, opt, batches = alphastar_setup(as_np, batches_np, dev)
     log, starts = [], []
     for batch in batches:
         starts.append((_cpu_copy(p.state_dict()),
                        copy.deepcopy(opt.state_dict())))
-        log.append(alphastar_step(p, opt, batch))
+        log.append(example_modules().alphastar.train_step(p, opt, batch,
+                                                          **AS_STEP))
         starts[-1] = (*starts[-1], _cpu_copy(p.state_dict()))
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
@@ -2259,13 +2208,13 @@ def phase_upgo(dev) -> dict:
     # in either direction on the two sides, and later steps amplify that.
     # So every step is held as a first step is: metrics, gradients, and the
     # updated parameters by check_adam_params.
-    ref_p, ref_opt, ref_batches = alphastar_setup(as_np, batches_np, cpu,
-                                                  **AS_CFG)
+    ref_p, ref_opt, ref_batches = alphastar_setup(as_np, batches_np, cpu)
     for i, ((m, g), (p_before, opt_before, p_after)) in enumerate(
             zip(log, starts)):
         ref_p.load_state_dict(p_before)
         ref_opt.load_state_dict(opt_before)
-        rm, rg = alphastar_step(ref_p, ref_opt, ref_batches[i])
+        rm, rg = example_modules().alphastar.train_step(
+            ref_p, ref_opt, ref_batches[i], **AS_STEP)
         result["check_vs_cpu"][f"alphastar step {i}"] = compare(
             f"alphastar step {i} metrics", list(m.values()),
             list(rm.values()))
@@ -2274,7 +2223,7 @@ def phase_upgo(dev) -> dict:
                     atol=0.0, atol_rel=GRAD_ATOL_REL)
         result["alphastar_params_vs_cpu"][f"step {i}"] = check_adam_params(
             f"alphastar step {i}", p_after, dict(ref_p.named_parameters()),
-            [rg], AS_LR, 1)
+            [rg], example_modules().alphastar.LR, 1)
     result["alphastar_steps"] = [{k: float(v) for k, v in m.items()}
                                  for m, _ in log]
     result["upgo_loss"] = float(out["upgo_loss"])
@@ -2289,16 +2238,18 @@ def phase_upgo(dev) -> dict:
     return result
 
 
-def upgo_timed_calls(x, as_np, batches_np, dev):
+def upgo_timed_calls(x, as_np, batches_np, dev, examples=True):
     """The three end-to-end calls that are timed: one ops.upgo_loss forward
-    + backward, one scatter add + gradient, one AlphaStar train step."""
-    p, opt, batches = alphastar_setup(as_np, batches_np[:1], dev, **AS_CFG)
-    return {
+    + backward, one scatter add + gradient and, with `examples`, one
+    AlphaStar train step."""
+    calls = {
         "upgo_loss_fwd_bwd_T128_B512_N128": lambda: upgo_loss_fwd_bwd(x),
-        "scatter_add_grad_B256_M256": lambda: scatter_fwd_bwd(x, "add"),
-        "alphastar_train_step_T16_B8": lambda: alphastar_step(p, opt,
-                                                              batches[0]),
-    }
+        "scatter_add_grad_B256_M256": lambda: scatter_fwd_bwd(x, "add")}
+    if examples:
+        p, opt, batches = alphastar_setup(as_np, batches_np[:1], dev)
+        calls["alphastar_train_step_T16_B8"] = lambda: example_modules(
+            ).alphastar.train_step(p, opt, batches[0], **AS_STEP)
+    return calls
 
 
 # ------------------------------------------------------------ phase 9 ----
@@ -2313,13 +2264,16 @@ NS_C51 = {"B": 128, "N": 128, "n_atom": 51, "nstep": 10, "gamma": 0.95,
 NS_QR = {"tau": 64, "B": 4096, "N": 64, "nstep": 3, "gamma": 0.99}
 NS_IQN = {"tau": 33, "tau_prime": 34, "B": 64, "N": 8, "nstep": 10,
           "gamma": 0.95, "kappa": 0.9}
-# The train step of examples/r2d2_training.py with its own configuration
-# (main's defaults, :56-59), Adam(lr=1e-3), the target net frozen at the
-# first step's parameters (target_update_every=10), synthetic replay
-# samples as the example draws them (:68-78).
+# The train step of di_hpc_tpu_torch.examples.r2d2_training in the JAX
+# example's configuration (main's defaults, examples/r2d2_training.py:56-59),
+# its Adam(lr=1e-3), the target net frozen at the first step's parameters
+# (target_update_every=10), synthetic replay samples as the example draws
+# them (:68-78).
 R2D2_CFG = {"S": 20, "burn_in": 4, "B": 32, "obs_dim": 16, "hidden": 128,
             "actions": 8, "nstep": 3, "layers": 1, "gamma": 0.99}
-R2D2_LR, R2D2_STEPS = 1e-3, 3
+# The train step's arguments besides the nets, the optimizer and the batch.
+R2D2_STEP = {k: R2D2_CFG[k] for k in ("burn_in", "nstep", "gamma")}
+R2D2_STEPS = 3
 NSTEP_KERNELS = ("lstm_layer_fused", "lstm_layer_bwd_v1")
 
 
@@ -2427,84 +2381,18 @@ def r2d2_batches(rng, steps, S, B, obs_dim, hidden, actions, layers, **_):
              "weight": np.ones(B, np.float32)} for _ in range(steps)]
 
 
-def r2d2_q_values(p, obs, state):
-    """The example's q_values (:56-60): obs (S, B, obs_dim), state ((L, B,
-    H), (L, B, H)) -> (q (S, B, A), state)."""
-    x = torch.tanh(obs @ p.embed_w + p.embed_b)
-    y, next_state = network.lstm_fused(p.lstm.params(), x, state, "LN")
-    return y @ p.q_w + p.q_b, next_state
-
-
-def r2d2_targets(p, target_p, x, burn_in, **_):
-    """Without gradient (:80-91): both nets burn in from the stored state,
-    then run over the rest of the sequence.  Returns the online net's
-    burnt-in state, the target net's q and the online net's q over
-    obs[burn_in:]."""
-    with torch.no_grad():
-        stored = (x["stored_h"], x["stored_c"])
-        _, bi_state = r2d2_q_values(p, x["obs"][:burn_in], stored)
-        _, bi_state_t = r2d2_q_values(target_p, x["obs"][:burn_in], stored)
-        q_tgt, _ = r2d2_q_values(target_p, x["obs"][burn_in:], bi_state_t)
-        q_sel, _ = r2d2_q_values(p, x["obs"][burn_in:], bi_state)
-    return bi_state, q_tgt, q_sel
-
-
-def r2d2_loss(p, x, bi_state, q_tgt, next_act, S, burn_in, nstep, gamma,
-              **_):
-    """The example's loss_fn (:93-121): q over the W = S - burn_in - nstep
-    learning steps, the (W, nstep, B) reward windows masked past the first
-    terminal, and ops.q_nstep_td_error_with_rescale for each window (a loop
-    over W for the example's vmap).  Returns (mean loss, td (W, B))."""
-    W = S - burn_in - nstep
-    q, _ = r2d2_q_values(p, x["obs"][burn_in:burn_in + W], bi_state)
-    reward, done = x["reward"], x["done"]
-    r_wins = torch.stack([reward[burn_in + t:burn_in + t + nstep]
-                          for t in range(W)])                  # (W, nstep, B)
-    d_raw = torch.stack([done[burn_in + t:burn_in + t + nstep]
-                         for t in range(W)])
-    d_wins = d_raw.any(dim=1)                                  # (W, B)
-    alive = torch.cumprod(1.0 - d_raw.to(r_wins.dtype), dim=1)
-    alive = torch.cat([torch.ones_like(alive[:, :1]), alive[:, :-1]], dim=1)
-    r_wins = r_wins * alive
-    act = x["act"]
-    losses, td = zip(*(ops.q_nstep_td_error_with_rescale(
-        ops.q_nstep_td_data(q[t], q_tgt[nstep + t], act[burn_in + t],
-                            next_act[nstep + t], r_wins[t], d_wins[t],
-                            x["weight"]), gamma=gamma, nstep=nstep)
-        for t in range(W)))
-    return torch.stack(losses).mean(), torch.stack(td)
-
-
 def r2d2_setup(arrays, batches_np, dev):
     """The online params on dev (Adam updates them in place), the frozen
     target params, their Adam and the batches, on dev."""
     p = models.from_jax_params(arrays, device=dev)
     target_p = models.from_jax_params(arrays, device=dev)
-    return (p, target_p, torch.optim.Adam(p.parameters(), lr=R2D2_LR),
+    lr = example_modules().r2d2.LR
+    return (p, target_p, torch.optim.Adam(p.parameters(), lr=lr),
             [to_dev(b, dev) for b in batches_np])
 
 
-def r2d2_step(p, target_p, opt, x, next_act=None, cfg=R2D2_CFG):
-    """One train step (:80-128) in configuration `cfg`: the targets,
-    double-DQN's argmax (or the given next_act), the loss, backward, Adam,
-    and the priorities 0.9 * max + 0.1 * mean of |td| over the window.
-    Returns the metrics (detached), the gradients by parameter name, the
-    online q over obs[burn_in:] and the argmax taken."""
-    bi_state, q_tgt, q_sel = r2d2_targets(p, target_p, x, **cfg)
-    if next_act is None:
-        next_act = q_sel.argmax(dim=-1)
-    opt.zero_grad()
-    loss, td = r2d2_loss(p, x, bi_state, q_tgt, next_act, **cfg)
-    loss.backward()
-    grads = {k: v.grad.clone() for k, v in p.named_parameters()}
-    opt.step()
-    per_seq = td.detach().abs()
-    priorities = 0.9 * per_seq.amax(dim=0) + 0.1 * per_seq.mean(dim=0)
-    return ({"loss": loss.detach(), "priorities": priorities}, grads, q_sel,
-            next_act)
-
-
-def argmax_near_ties(q_card, q_cpu, act_card, act_cpu, gap=1e-4) -> int:
+def argmax_near_ties(q_card, q_cpu, act_card, act_cpu, gap=1e-4,
+                     name="r2d2") -> int:
     """How many of the card's and the CPU's argmaxes differ; raises unless
     each such entry is a near tie on the CPU (its two picks within `gap`)."""
     q_cpu = q_cpu.detach()
@@ -2512,12 +2400,13 @@ def argmax_near_ties(q_card, q_cpu, act_card, act_cpu, gap=1e-4) -> int:
     if diff.any():
         picked = q_cpu.gather(-1, act_card.cpu()[..., None])[..., 0]
         if float((q_cpu.amax(dim=-1) - picked)[diff].max()) > gap:
-            raise AssertionError("r2d2: the card's argmax is not the CPU's "
-                                 "away from a tie")
+            raise AssertionError(f"{name}: the card's argmax is not the "
+                                 f"CPU's away from a tie")
     return int(diff.sum())
 
 
 def phase_nstep(dev) -> dict:
+    r2d2 = example_modules().r2d2
     rng = np.random.default_rng(SEED + 22)
     x_np = nstep_arrays(rng)
     r2_np = r2d2_arrays(rng, **R2D2_CFG)
@@ -2534,7 +2423,7 @@ def phase_nstep(dev) -> dict:
     for batch in batches:
         starts.append((_cpu_copy(p.state_dict()),
                        copy.deepcopy(opt.state_dict())))
-        log.append(r2d2_step(p, target_p, opt, batch))
+        log.append(r2d2.train_step(p, target_p, opt, batch, **R2D2_STEP))
         starts[-1] = (*starts[-1], _cpu_copy(p.state_dict()))
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
@@ -2574,13 +2463,14 @@ def phase_nstep(dev) -> dict:
             enumerate(zip(log, starts)):
         ref_p.load_state_dict(p_before)
         ref_opt.load_state_dict(opt_before)
-        _, _, ref_q_sel = r2d2_targets(ref_p, ref_target, ref_batches[i],
-                                       **R2D2_CFG)
+        _, _, ref_q_sel = r2d2.targets(ref_p, ref_target, ref_batches[i],
+                                       R2D2_CFG["burn_in"])
         compare(f"r2d2 step {i} q", [q_sel], [ref_q_sel])
         ties += argmax_near_ties(q_sel, ref_q_sel, next_act,
                                  ref_q_sel.argmax(dim=-1))
-        rm, rg, _, _ = r2d2_step(ref_p, ref_target, ref_opt, ref_batches[i],
-                                 next_act.cpu())
+        rm, rg, _, _ = r2d2.train_step(ref_p, ref_target, ref_opt,
+                                       ref_batches[i], **R2D2_STEP,
+                                       next_act=next_act.cpu())
         result["check_vs_cpu"][f"r2d2 step {i}"] = compare(
             f"r2d2 step {i} loss and priorities", list(m.values()),
             list(rm.values()))
@@ -2589,7 +2479,7 @@ def phase_nstep(dev) -> dict:
                     atol_rel=GRAD_ATOL_REL)
         result["r2d2_params_vs_cpu"][f"step {i}"] = check_adam_params(
             f"r2d2 step {i}", p_after, dict(ref_p.named_parameters()),
-            [rg], R2D2_LR, 1)
+            [rg], r2d2.LR, 1)
     result["r2d2_argmax_near_ties"] = ties
     result["r2d2_losses"] = [float(m["loss"]) for m, *_ in log]
     result["r2d2_max_priority"] = [float(m["priorities"].max())
@@ -2599,23 +2489,187 @@ def phase_nstep(dev) -> dict:
     return result
 
 
-def nstep_timed_calls(x, r2_np, batches_np, dev):
+def nstep_timed_calls(x, r2_np, batches_np, dev, examples=True):
     """The end-to-end calls that are timed: each TD op's forward +
-    backward at its NS_* shape, and one R2D2 train step."""
-    p, target_p, opt, batches = r2d2_setup(r2_np, batches_np[:1], dev)
+    backward at its NS_* shape and, with `examples`, one R2D2 train
+    step."""
     calls = nstep_op_calls(x)
     shapes = {"q_nstep_td_error": "B64_N64",
               "q_nstep_td_error_with_rescale": "B64_N64",
               "dist_nstep_td_error": "B128_N128_atoms51",
               "qrdqn_nstep_td_error": "tau64_B4096_N64",
               "iqn_nstep_td_error": "tau33_B64_N8"}
-    return {**{f"{name}_fwd_bwd_{shapes[name]}": calls[name]
-               for name in calls},
-            "r2d2_train_step_S20_B32": lambda: r2d2_step(
-                p, target_p, opt, batches[0])}
+    timed = {f"{name}_fwd_bwd_{shapes[name]}": calls[name] for name in calls}
+    if examples:
+        p, target_p, opt, batches = r2d2_setup(r2_np, batches_np[:1], dev)
+        timed["r2d2_train_step_S20_B32"] = lambda: example_modules(
+            ).r2d2.train_step(p, target_p, opt, batches[0], **R2D2_STEP)
+    return timed
 
 
 # ----------------------------------------------------------- phase 10 ----
+
+# The C51 trainer of di_hpc_tpu_torch.examples.c51_training and the QR-DQN
+# and IQN trainers of di_hpc_tpu_torch.examples.quantile_dqn_training in the
+# JAX examples' configurations (main's defaults, examples/c51_training.py:
+# 49-52 and examples/quantile_dqn_training.py:178-181), their Adam(1e-3) and
+# their own batches.  Over REPLAY_STEPS steps every refresh rule of the JAX
+# loops leaves the target net at the initial parameters.
+C51_CFG = {"B": 128, "obs_dim": 32, "hidden": 64, "actions": 8,
+           "n_atom": 51, "nstep": 3, "v_min": -10.0, "v_max": 10.0}
+QDQN_CFG = {"B": 64, "obs_dim": 24, "hidden": 64, "actions": 8, "n_tau": 32,
+            "n_tau_prime": 32, "n_cos": 64, "nstep": 3, "gamma": 0.99,
+            "kappa": 1.0}
+REPLAY_STEPS = 3
+# Card against CPU for the replay steps' loss and per-sample TD errors.
+REPLAY_RTOL, REPLAY_ATOL = 1e-4, 1e-5
+# Each example's main() at its defaults, on the card: the kernels of the
+# PPO (7), AlphaStar (1, 5, 2, 3, 11, 12) and R2D2 (1, 5) paths.
+EXAMPLES_KERNELS = ("lstm_layer_fused", "lstm_layer_bwd_v1", "vtrace_losses",
+                    "vtrace_returns_adv", "gae", "upgo_advantages",
+                    "upgo_loss")
+
+
+def replay_learners(ex) -> dict:
+    """name -> (seed, Adam's lr, init(generator, device), draw(generator,
+    device) of one batch, step(params, target, optimizer, batch,
+    next_act=None)) of the three replay learners at their configurations."""
+    c, q = C51_CFG, QDQN_CFG
+    qd = ex.quantile
+    return {
+        "c51": (ex.c51.SEED, ex.c51.LR,
+                lambda g, d: ex.c51.init_params(
+                    g, c["obs_dim"], c["hidden"], c["actions"], c["n_atom"],
+                    d),
+                lambda g, d: ex.c51.synthetic_batch(
+                    g, c["B"], c["obs_dim"], c["actions"], c["nstep"], d),
+                lambda p, t, o, b, next_act=None: ex.c51.train_step(
+                    p, t, o, b, c["n_atom"], c["nstep"], c["v_min"],
+                    c["v_max"], next_act=next_act)),
+        "qrdqn": (qd.QR_SEED, qd.LR,
+                  lambda g, d: qd.init_qr(g, q["obs_dim"], q["hidden"],
+                                          q["actions"], q["n_tau"], d),
+                  lambda g, d: qd.synthetic_batch(
+                      g, q["B"], q["obs_dim"], q["actions"], q["nstep"],
+                      device=d),
+                  lambda p, t, o, b, next_act=None: qd.qrdqn_step(
+                      p, t, o, b, q["n_tau"], q["nstep"], q["gamma"],
+                      next_act)),
+        "iqn": (qd.IQN_SEED, qd.LR,
+                lambda g, d: qd.init_iqn(g, q["obs_dim"], q["hidden"],
+                                         q["actions"], q["n_cos"], d),
+                lambda g, d: qd.synthetic_batch(
+                    g, q["B"], q["obs_dim"], q["actions"], q["nstep"],
+                    q["n_tau"], q["n_tau_prime"], d),
+                lambda p, t, o, b, next_act=None: qd.iqn_step(
+                    p, t, o, b, q["n_cos"], q["nstep"], q["gamma"],
+                    q["kappa"], next_act))}
+
+
+def replay_leg(name, seed, lr, init, draw, step, dev) -> dict:
+    """REPLAY_STEPS steps of one learner on the card, then each held
+    against the same step on the CPU started from the card's parameters and
+    Adam state before it and given the card's next action (held against
+    the CPU's own argmax up to near ties): the loss and TD errors, every
+    gradient, the updated parameters.  Returns the checks, the steps'
+    losses and the host ms per card step (median of 7)."""
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(seed)
+    start = init(gen, cpu)
+    batches = [draw(gen, cpu) for _ in range(REPLAY_STEPS)]
+    p, target = copy.deepcopy(start).to(dev), copy.deepcopy(start).to(dev)
+    opt = torch.optim.Adam(p.parameters(), lr=lr)
+    log, starts = [], []
+    for b in batches:
+        starts.append((_cpu_copy(p.state_dict()),
+                       copy.deepcopy(opt.state_dict())))
+        log.append(step(p, target, opt, {k: v.to(dev) for k, v in b.items()}))
+        starts[-1] = (*starts[-1], _cpu_copy(p.state_dict()))
+    torch.cuda.synchronize()
+
+    ref_p, ref_target = copy.deepcopy(start), copy.deepcopy(start)
+    ref_opt = torch.optim.Adam(ref_p.parameters(), lr=lr)
+    out = {"check_vs_cpu": {}, "params_vs_cpu": {}, "argmax_near_ties": 0}
+    for i, ((m, g, next_q, next_act), (p_before, opt_before, p_after)) in \
+            enumerate(zip(log, starts)):
+        ref_p.load_state_dict(p_before)
+        ref_opt.load_state_dict(opt_before)
+        rm, rg, ref_q, _ = step(ref_p, ref_target, ref_opt, batches[i],
+                                next_act.cpu())
+        out["argmax_near_ties"] += argmax_near_ties(
+            next_q, ref_q, next_act, ref_q.argmax(dim=-1), name=name)
+        out["check_vs_cpu"][f"step {i}"] = {
+            **compare(f"{name} step {i} loss and td", list(m.values()),
+                      list(rm.values()), rtol=REPLAY_RTOL, atol=REPLAY_ATOL),
+            "grads": {k: compare(f"{name} step {i} grad {k}", [g[k]],
+                                 [rg[k]], atol=0.0, atol_rel=GRAD_ATOL_REL)
+                      for k in rg}}
+        out["params_vs_cpu"][f"step {i}"] = check_adam_params(
+            f"{name} step {i}", p_after, dict(ref_p.named_parameters()),
+            [rg], lr, 1)
+    out["losses"] = [float(m["loss"]) for m, *_ in log]
+    first = {k: v.to(dev) for k, v in batches[0].items()}
+    out[f"ms_per_{name}_step"] = host_ms(
+        lambda: step(p, target, opt, first), 7)
+    return out
+
+
+def run_example_mains(ex, dev) -> dict:
+    """Each example's main() once on the card at its defaults, its printout
+    kept (the losses of its last step among them): seconds and finite
+    parameters."""
+    mains = {"c51_training": ex.c51.main,
+             "quantile_dqn_training": ex.quantile.main,
+             "ppo_training": ex.ppo.main,
+             "alphastar_policy_training": ex.alphastar.main,
+             "r2d2_training": ex.r2d2.main}
+    out = {}
+    for name, main_fn in mains.items():
+        printed = io.StringIO()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            params = main_fn(device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        nets = params.values() if isinstance(params, dict) else [params]
+        check_finite(f"{name}.main() parameters",
+                     [t for net in nets for t in net.parameters()])
+        out[name] = {"seconds": seconds,
+                     "printed": printed.getvalue().splitlines()}
+    return out
+
+
+def phase_replay(dev) -> dict:
+    ex = example_modules()
+    kernels.reset_launch_counts()
+    learners = {name: replay_leg(name, *spec, dev)
+                for name, spec in replay_learners(ex).items()}
+    launches = kernels.launch_counts()
+    # The replay learners' ops are plain PyTorch in both packages.
+    if any(launches.values()):
+        raise AssertionError(f"replay: a kernel launched on a path that has "
+                             f"none: {launches}")
+    result = {"launches": launches, "no_kernel_on_this_path": True,
+              "tolerance": {"loss_td": {"rtol": REPLAY_RTOL,
+                                        "atol": REPLAY_ATOL},
+                            "grads_atol_rel_to_max": GRAD_ATOL_REL},
+              **learners}
+
+    kernels.reset_launch_counts()
+    network.reset_route_counts()
+    mains = run_example_mains(ex, dev)
+    launches = kernels.launch_counts()
+    check_launched("examples", launches, EXAMPLES_KERNELS)
+    routes = dict(network.lstm_fused.routes)
+    if routes["recurrent"]:
+        raise AssertionError(f"examples: the layers' routes are {routes}, "
+                             f"not the kernels")
+    result["examples"] = {"launches": launches, "lstm_fused_routes": routes,
+                          **mains}
+    return result
+
+
+# ----------------------------------------------------------- phase 11 ----
 
 # Ragged padding at the JAX bench's reference configuration
 # (bench.py:890-903): B=64 float32 items per rank, each extent drawn from
@@ -3008,7 +3062,7 @@ def hostdata_timed_calls(dev):
             "learner_step_T16_B32": lambda: train(params, batch)}
 
 
-# ----------------------------------------------------------- phase 11 ----
+# ----------------------------------------------------------- phase 12 ----
 
 # A gloo world of 4 processes on the one card, each on cuda:0 (NCCL refuses
 # two ranks on one card), at the full width of phase kernels' V-trace and
@@ -3252,7 +3306,7 @@ def phase_parallel(dev) -> dict:
             "ms_rank0": first["ms"]}
 
 
-# ----------------------------------------------------------- phase 12 ----
+# ----------------------------------------------------------- phase 13 ----
 
 # The multichip path: entry.dryrun_multichip's world of 4 rank processes on
 # the one card (gloo, each on cuda:0; NCCL, one rank per card, under
@@ -3482,7 +3536,7 @@ def phase_multichip(dev) -> dict:
         "launches": launches}
 
 
-# ----------------------------------------------------------- phase 13 ----
+# ----------------------------------------------------------- phase 14 ----
 
 def profile_one(fn) -> dict:
     """torch.profiler over one call of fn after a warm-up call: device busy
@@ -3525,7 +3579,11 @@ def phase_profile(dev) -> dict:
     calls and the weighted ops.td_lambda_error (kernel 8's launch), the
     UPGO loss, the AlphaStar train step, the four scan entry points of
     phase upgo (kernel 6's launches), phase nstep's five TD ops and R2D2
-    train step, and phase hostdata's episodic A2C step and learner step."""
+    train step, phase replay's C51, QR-DQN and IQN steps, and phase
+    hostdata's episodic A2C step and learner step.  In a checkout without
+    the example modules of example_modules() it leaves out the PPO,
+    AlphaStar, R2D2 and replay steps."""
+    examples = have_examples()
     _, params, obs, serve_obs, _, _, _, big_x = slice_inputs(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
@@ -3555,7 +3613,7 @@ def phase_profile(dev) -> dict:
     x = to_dev(onpolicy_arrays(rng), dev)
     for name, fn in onpolicy_timed_calls(
             x, ppo_params(rng, **PPO_CFG),
-            ppo_rollouts(rng, 1, **PPO_CFG), dev).items():
+            ppo_rollouts(rng, 1, **PPO_CFG), dev, examples).items():
         out[name] = profile_one(fn)
     # The weighted call, whose returns plane is kernel 8's one launch.
     out["td_lambda_weighted_T1024_B4096"] = profile_one(
@@ -3565,10 +3623,11 @@ def phase_profile(dev) -> dict:
     x = to_dev(upgo_arrays(rng), dev)
     as_np = alphastar_arrays(rng, **AS_CFG)
     timed = upgo_timed_calls(x, as_np, alphastar_batches(rng, 1, **AS_CFG),
-                             dev)
+                             dev, examples)
     for name in ("upgo_loss_fwd_bwd_T128_B512_N128",
                  "alphastar_train_step_T16_B8"):
-        out[name] = profile_one(timed[name])
+        if name in timed:
+            out[name] = profile_one(timed[name])
     out["scan_entry_points_T1024_B4096"] = profile_one(
         lambda: run_scan_entry_points(x))
     # Phase nstep's timed calls (the five TD ops, the R2D2 step), where the
@@ -3578,8 +3637,19 @@ def phase_profile(dev) -> dict:
         x = {k: to_dev(v, dev) for k, v in nstep_arrays(rng).items()}
         for name, fn in nstep_timed_calls(
                 x, r2d2_arrays(rng, **R2D2_CFG),
-                r2d2_batches(rng, 1, **R2D2_CFG), dev).items():
+                r2d2_batches(rng, 1, **R2D2_CFG), dev, examples).items():
             out[name] = profile_one(fn)
+    # Phase replay's three learners, one step each at its configuration.
+    if examples:
+        for name, (seed, lr, init, draw, step) in replay_learners(
+                example_modules()).items():
+            gen = torch.Generator().manual_seed(seed)
+            p = init(gen, dev)
+            target = copy.deepcopy(p)
+            opt = torch.optim.Adam(p.parameters(), lr=lr)
+            batch = draw(gen, dev)
+            out[f"{name}_train_step"] = profile_one(
+                lambda: step(p, target, opt, batch))
     # Phase hostdata's episodic A2C step and learner step, where the
     # checkout has the examples.
     if importlib.util.find_spec("di_hpc_tpu_torch.examples") is not None:
@@ -3753,6 +3823,7 @@ def main() -> int:
                      ("onpolicy", lambda: phase_onpolicy(dev)),
                      ("upgo", lambda: phase_upgo(dev)),
                      ("nstep", lambda: phase_nstep(dev)),
+                     ("replay", lambda: phase_replay(dev)),
                      ("hostdata", lambda: phase_hostdata(
                          dev, results["kernels"])),
                      ("parallel", lambda: phase_parallel(dev)),
@@ -3771,9 +3842,10 @@ def main() -> int:
     rows = results["kernels"]
     # Launches on each counted path run: the slice, the train legs, the bf16
     # path, the on-policy path, the UPGO/AlphaStar path, the TD family and
-    # the R2D2 learner, the host data plane with its two examples, the
-    # parallel layer's world (summed over its ranks), the multichip path
-    # (its two worlds summed over their ranks, and impala_training).
+    # the R2D2 learner, the replay learners (none), the five examples'
+    # main() runs, the host data plane with its two examples, the parallel
+    # layer's world (summed over its ranks), the multichip path (its two
+    # worlds summed over their ranks, and impala_training).
     by_path = {"slice": results["slice"]["launches"],
                **{f"train {leg}": results["train"][leg]["launches"]
                   for leg in results["train"] if leg.startswith("B=")},
@@ -3781,6 +3853,8 @@ def main() -> int:
                "onpolicy": results["onpolicy"]["launches"],
                "upgo": results["upgo"]["launches"],
                "nstep": results["nstep"]["launches"],
+               "replay": results["replay"]["launches"],
+               "examples": results["replay"]["examples"]["launches"],
                "hostdata": results["hostdata"]["launches"],
                "parallel": results["parallel"]["launches"],
                "multichip": results["multichip"]["launches"]}

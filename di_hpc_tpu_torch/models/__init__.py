@@ -2,7 +2,8 @@
 LN-LSTM actor-critic (forward, serving step and V-trace training step,
 unsharded and over a data x model mesh of ranks), the
 AlphaStar policy-head helpers and the autoregressive entity-selection head,
-and the weight carry-over from the JAX package."""
+the parameter modules of the examples (AlphaStar, R2D2, the C51/QR-DQN,
+IQN and PPO networks), and the weight carry-over from the JAX package."""
 
 from .actor_critic import lstm_activation, pre_sample, update_ae
 from .actor_critic_lstm import (
@@ -21,6 +22,12 @@ from .convert import (
     AlphaStarArrays,
     AlphaStarParams,
     EntitySelectionArrays,
+    IQNArrays,
+    IQNParams,
+    PPOArrays,
+    PPOParams,
+    QArrays,
+    QParams,
     R2D2Arrays,
     R2D2Params,
     from_jax_params,

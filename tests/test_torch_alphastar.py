@@ -1,7 +1,8 @@
 """The port's AlphaStar pieces (di_hpc_tpu_torch: the scatter connection and
 its oracle, the policy-head helpers, the entity-selection head, the weight
-carry-over, and one step of chip_smoke.py's AlphaStar trainer) against the
-JAX package's, on the CPU.
+carry-over, and one step of the AlphaStar trainer of
+di_hpc_tpu_torch.examples.alphastar_policy_training, as chip_smoke.py drives
+it) against the JAX package's, on the CPU.
 
 Inputs and weights are made with numpy from a seed and handed to both
 sides.  The JAX side runs its products under
@@ -26,6 +27,7 @@ from di_hpc_tpu import origin as jax_origin
 from di_hpc_tpu.ops.categorical import logp as jax_logp
 
 from di_hpc_tpu_torch import kernels, models, network, origin
+from di_hpc_tpu_torch.examples import alphastar_policy_training as alphastar
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -328,7 +330,7 @@ def _port_name(path):
 
 
 def test_alphastar_step_matches_jax():
-    """One step of chip_smoke.py's AlphaStar trainer (the example's
+    """One step of the example module's AlphaStar trainer (the example's
     configuration, greedy selection, torch.optim.Adam(3e-4)) against the
     same composition of JAX functions with optax.adam(3e-4), from the same
     numpy weights and batch: the metrics, every gradient, and the updated
@@ -344,14 +346,14 @@ def test_alphastar_step_matches_jax():
         (_, want_m), want_g = jax.value_and_grad(
             lambda p: _jax_loss(p, jx, cfg["H"], cfg["W"],
                                 chip_smoke.AS_SELECTIONS), has_aux=True)(jp)
-    opt = optax.adam(chip_smoke.AS_LR)
+    opt = optax.adam(alphastar.LR)
     updates, _ = opt.update(want_g, opt.init(jp), jp)
     want_p = optax.apply_updates(jp, updates)
 
     kernels.reset_launch_counts()
     p, opt, (x,) = chip_smoke.alphastar_setup(arrays, [batch],
-                                              torch.device("cpu"), **cfg)
-    got_m, got_g = chip_smoke.alphastar_step(p, opt, x)
+                                              torch.device("cpu"))
+    got_m, got_g = alphastar.train_step(p, opt, x, **chip_smoke.AS_STEP)
     got_p = dict(p.named_parameters())
     assert set(kernels.launch_counts().values()) == {0}   # CPU: plain only
     for k in want_m:
@@ -367,4 +369,4 @@ def test_alphastar_step_matches_jax():
         "alphastar", got_p,
         {k: torch.from_numpy(np.array(v)) for k, v in want_p.items()},
         [{k: torch.from_numpy(np.array(v)) for k, v in want_g.items()}],
-        chip_smoke.AS_LR, 1)
+        alphastar.LR, 1)

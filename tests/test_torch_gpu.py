@@ -4,8 +4,9 @@ autograd through the plain forward, the forward/serving path, one training
 step and the GAE and TD(lambda) ops on the card against the same calls on
 the CPU; the full-plane kernels (the linear recurrence, UPGO) against their
 plain versions, the scan entry points, ops.upgo_loss and the scatter
-connection on the card against the CPU, and one step of chip_smoke.py's
-AlphaStar trainer on the card against the CPU; the bf16 instantiations of the
+connection on the card against the CPU, and one step of the AlphaStar
+trainer of di_hpc_tpu_torch.examples.alphastar_policy_training on the card
+against the CPU; the bf16 instantiations of the
 three LSTM kernels against their plain bf16 versions, the bf16 train step on
 the card against the CPU, and strided (T, B) inputs through the RL ops;
 the chunked linear recurrence (kernel 6), TD(lambda) loss (kernel 9), GAE
@@ -13,7 +14,9 @@ the chunked linear recurrence (kernel 6), TD(lambda) loss (kernel 9), GAE
 (kernel 8), UPGO loss (kernel 12) and UPGO advantage plane (kernel 11)
 against their plain versions at ragged shapes, boundaries, (gamma, lambda),
 exact ties and tilings; the batch-bound TD family (ops.q_nstep_td_error and
-its kin) on the card against the same calls on the CPU; and
+its kin) on the card against the same calls on the CPU, and the C51,
+QR-DQN and IQN trainers' steps of di_hpc_tpu_torch.examples (chip_smoke's
+phase replay legs) on the card against the CPU; and
 `network.lstm_fused` with a gradient where the kernels cannot take the
 layer (H % 4 != 0, widths past each shared-memory plan, float16), against
 the same call on the CPU, with the route each layer took; and the host data
@@ -43,6 +46,7 @@ import torch
 
 import chip_smoke
 from di_hpc_tpu_torch import kernels, models, network, ops
+from di_hpc_tpu_torch.examples import alphastar_policy_training as alphastar
 from di_hpc_tpu_torch.kernels import _build
 from di_hpc_tpu_torch.kernels.linear_scan import _linear_scan
 
@@ -931,7 +935,7 @@ def test_scatter_on_card_matches_cpu(cuda, mode):
 
 
 def test_alphastar_step_on_card_matches_cpu(cuda):
-    """One step of chip_smoke.py's AlphaStar trainer (the example's
+    """One step of the example module's AlphaStar trainer (the example's
     configuration, greedy selection) on the card against the CPU: the
     launches of its path, the metrics, every gradient, and the parameters by
     the Adam rule of chip_smoke.check_adam_params."""
@@ -940,9 +944,8 @@ def test_alphastar_step_on_card_matches_cpu(cuda):
     batches = chip_smoke.alphastar_batches(rng, 1, **chip_smoke.AS_CFG)
 
     def step(dev):
-        p, opt, (batch,) = chip_smoke.alphastar_setup(
-            arrays, batches, dev, **chip_smoke.AS_CFG)
-        return (*chip_smoke.alphastar_step(p, opt, batch),
+        p, opt, (batch,) = chip_smoke.alphastar_setup(arrays, batches, dev)
+        return (*alphastar.train_step(p, opt, batch, **chip_smoke.AS_STEP),
                 dict(p.named_parameters()))
 
     kernels.reset_launch_counts()
@@ -961,7 +964,7 @@ def test_alphastar_step_on_card_matches_cpu(cuda):
         torch.testing.assert_close(g[k].cpu(), wg[k], rtol=RTOL, atol=atol,
                                    msg=f"grad {k}")
     chip_smoke.check_adam_params("alphastar", params, want_params, [wg],
-                                 chip_smoke.AS_LR, 1)
+                                 alphastar.LR, 1)
 
 
 def test_full_plane_wrappers_raise_on_what_they_cannot_take(cuda):
@@ -1582,6 +1585,21 @@ def test_dist_nstep_td_error_is_bitwise_repeatable_on_the_card(cuda):
     first, second = run(), run()
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("name", ["c51", "qrdqn", "iqn"])
+def test_replay_learner_steps_on_card_match_cpu(cuda, name):
+    """chip_smoke's phase replay leg for one learner at its JAX example's
+    configuration: REPLAY_STEPS steps on the card, each against the same
+    step on the CPU from the card's state before it and with the card's
+    next action (the loss and TD errors at REPLAY_RTOL/REPLAY_ATOL, every
+    gradient within GRAD_ATOL_REL of its max, the parameters by
+    check_adam_params); no kernel launches on these paths."""
+    spec = chip_smoke.replay_learners(chip_smoke.example_modules())[name]
+    kernels.reset_launch_counts()
+    out = chip_smoke.replay_leg(name, *spec, cuda)
+    assert set(kernels.launch_counts().values()) == {0}
+    assert len(out["losses"]) == chip_smoke.REPLAY_STEPS
 
 
 # ------------------------------------------------ lstm_fused routing ----

@@ -49,6 +49,9 @@ def test_package_imports_without_jax_or_the_jax_package():
                 "data", "utils.native", "utils.checkpoint",
                 "utils.profiling", "entry", "examples.episodic_a2c_padding",
                 "examples.impala_actor_learner", "examples.impala_training",
+                "examples.c51_training", "examples.quantile_dqn_training",
+                "examples.ppo_training", "examples.alphastar_policy_training",
+                "examples.r2d2_training",
                 "parallel", "parallel.mesh",
                 "parallel.dscan", "parallel.api", "parallel.runtime",
                 "parallel._comm", "utils.transfer"):

@@ -1,7 +1,8 @@
 """The port's PPO (di_hpc_tpu_torch.ops.ppo_error, ppo_error_with_logp_old,
-PPO and the origin oracle) and one iteration of the on-policy trainer that
-chip_smoke.py drives (GAE -> logp_old -> epochs of the PPO loss -> Adam)
-against the JAX package's, on the CPU.
+PPO and the origin oracle) and one iteration of the on-policy trainer of
+di_hpc_tpu_torch.examples.ppo_training, which chip_smoke.py drives (GAE ->
+logp_old -> epochs of the PPO loss -> Adam), against the JAX package's, on
+the CPU.
 
 Inputs are made with numpy from a seed and handed to both sides; the JAX
 GAE kernel runs in interpret mode.  Tolerances: rtol=1e-4, atol=1e-5, as
@@ -21,6 +22,7 @@ from di_hpc_tpu import ops as jax_ops
 from di_hpc_tpu import origin as jax_origin
 
 from di_hpc_tpu_torch import kernels, ops, origin
+from di_hpc_tpu_torch.examples import ppo_training as ppo
 
 RTOL, ATOL = 1e-4, 1e-5
 PPO_NAMES = ("policy_loss", "value_loss", "entropy_loss", "approx_kl",
@@ -221,7 +223,7 @@ def _jax_iteration(params, rollout, epochs, lr):
 
 
 def test_ppo_iteration_matches_jax(interpret):
-    """One iteration of chip_smoke.py's trainer (GAE -> logp_old -> 2
+    """One iteration of the example module's trainer (GAE -> logp_old -> 2
     epochs of ppo_error_with_logp_old -> torch.optim.Adam) against the same
     composition of JAX ops with optax.adam: the batch (actions, advantages,
     returns, logp_old), each epoch's metrics and gradients at rtol=1e-4,
@@ -232,11 +234,11 @@ def test_ppo_iteration_matches_jax(interpret):
     rollout = chip_smoke.ppo_rollouts(rng, 1, **CFG)[0]
     want_log, want_p, want_batch = _jax_iteration(
         {k: jnp.asarray(v) for k, v in arrays.items()}, rollout, EPOCHS,
-        chip_smoke.PPO_LR)
+        ppo.LR)
 
     cpu = torch.device("cpu")
     p, opt, rollouts = chip_smoke.ppo_setup(arrays, [rollout], cpu)
-    batch = chip_smoke.ppo_collect(p, *rollouts[0])
+    batch = ppo.collect(p, *rollouts[0])
     assert torch.equal(batch["action"],
                        torch.tensor(np.asarray(want_batch["action"])))
     for k in ("logp_old", "value_old", "adv", "return_"):
@@ -244,7 +246,7 @@ def test_ppo_iteration_matches_jax(interpret):
 
     kernels.reset_launch_counts()
     p, opt, rollouts = chip_smoke.ppo_setup(arrays, [rollout], cpu)
-    log = chip_smoke.ppo_iteration(p, opt, rollouts[0], EPOCHS)
+    log = ppo.iteration(p, opt, rollouts[0], EPOCHS)
     assert set(kernels.launch_counts().values()) == {0}  # CPU: plain only
     for i, ((m, g), (wm, wg)) in enumerate(zip(log, want_log)):
         for k in wm:
@@ -252,6 +254,7 @@ def test_ppo_iteration_matches_jax(interpret):
         for k in wg:
             _close(g[k], wg[k], f"epoch {i} grad {k}")
     chip_smoke.check_adam_params(
-        "ppo", p, {k: torch.tensor(np.asarray(v)) for k, v in want_p.items()},
+        "ppo", dict(p.named_parameters()),
+        {k: torch.tensor(np.asarray(v)) for k, v in want_p.items()},
         [{k: torch.tensor(np.asarray(v)) for k, v in wg.items()}
-         for _, wg in want_log], chip_smoke.PPO_LR, EPOCHS)
+         for _, wg in want_log], ppo.LR, EPOCHS)

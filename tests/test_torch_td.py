@@ -1,6 +1,7 @@
 """The port's batch-bound TD family (di_hpc_tpu_torch: the 13 TD names of
-origin, the 14 of ops, check_nstep, and one step of chip_smoke.py's R2D2
-learner) against the JAX package's, on the CPU.
+origin, the 14 of ops, check_nstep, and one step of the R2D2 learner of
+di_hpc_tpu_torch.examples.r2d2_training, as chip_smoke.py drives it)
+against the JAX package's, on the CPU.
 
 Inputs and weights are made with numpy from a seed and handed to both
 sides.  The JAX side runs under `jax.default_matmul_precision("float32")`,
@@ -24,6 +25,7 @@ from di_hpc_tpu import ops as jax_ops
 from di_hpc_tpu import origin as jax_origin
 
 from di_hpc_tpu_torch import kernels, models, ops, origin
+from di_hpc_tpu_torch.examples import r2d2_training as r2d2
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -635,8 +637,8 @@ def test_r2d2_params_carry_over_and_back():
 
 
 def test_r2d2_step_matches_jax():
-    """One step of chip_smoke.py's R2D2 learner (burn-in without gradient,
-    double-DQN argmax, the masked reward windows,
+    """One step of the example module's R2D2 learner (burn-in without
+    gradient, double-DQN argmax, the masked reward windows,
     ops.q_nstep_td_error_with_rescale over the window, torch.optim.Adam(1e-3))
     at S=8, burn-in 2, B=4, H=16, nstep 2 against the example's step on the
     JAX package with optax.adam(1e-3), from the same numpy weights and
@@ -656,8 +658,9 @@ def test_r2d2_step_matches_jax():
     kernels.reset_launch_counts()
     p, target_p, opt, (x,) = chip_smoke.r2d2_setup(arrays, [batch],
                                                    torch.device("cpu"))
-    metrics, got_g, _, _ = chip_smoke.r2d2_step(p, target_p, opt, x,
-                                                cfg=cfg)
+    metrics, got_g, _, _ = r2d2.train_step(p, target_p, opt, x,
+                                           cfg["burn_in"], cfg["nstep"],
+                                           cfg["gamma"])
     assert set(kernels.launch_counts().values()) == {0}   # CPU: plain only
     _close(metrics["loss"], want_loss, "loss")
     _close(metrics["priorities"], want_prio, "priorities")
@@ -671,4 +674,4 @@ def test_r2d2_step_matches_jax():
         "r2d2", dict(p.named_parameters()),
         {k: torch.from_numpy(np.array(v)) for k, v in want_p.items()},
         [{k: torch.from_numpy(np.array(v)) for k, v in want_g.items()}],
-        chip_smoke.R2D2_LR, 1)
+        r2d2.LR, 1)
