@@ -11,7 +11,12 @@ kernel counts on `lstm_layer_fused`, with or without its stash; both
 directions of the linear recurrence count on `linear_scan`).  The three
 LSTM kernels also take bf16 streams: their bf16 launches count apart, in
 `wrapper.launches_bf16`, and `launch_counts` reports them as
-"<name>_bf16".
+"<name>_bf16".  While a profiler runs, each counted launch is also the
+span `dihpc.kernel.<name>` in its trace (`dihpc.kernel.<name>_bf16`),
+around the launch call alone (utils.profiling.span), so the device time of
+the kernels launched inside it can be read from the trace without their
+names.  Neither the counters nor the spans see a replay of a captured
+CUDA graph: both count calls of the wrappers.
 """
 
 from .linear_scan import (

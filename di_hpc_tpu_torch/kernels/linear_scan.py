@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from .rl_scans import _sms, chunked_launch_shape
 
@@ -90,11 +91,13 @@ def _linear_scan(a, b, boundary, reverse, cols=None, chunks=None):
     y = torch.empty((T, B), dtype=torch.float32, device=a.device)
     bound = tensors.get("boundary")
     with torch.cuda.device(a.device):
+        entry = _build.library().cdll.linear_scan_f32
         stream = torch.cuda.current_stream().cuda_stream
-        status = _build.library().cdll.linear_scan_f32(
-            tensors["a"].data_ptr(), tensors["b"].data_ptr(),
-            None if bound is None else bound.data_ptr(), y.data_ptr(), T, B,
-            int(reverse), shape["cols"], shape["chunks"], stream)
+        with span("dihpc.kernel." + name):
+            status = entry(tensors["a"].data_ptr(), tensors["b"].data_ptr(),
+                           None if bound is None else bound.data_ptr(),
+                           y.data_ptr(), T, B, int(reverse), shape["cols"],
+                           shape["chunks"], stream)
     _build.check_status(name, status)
     linear_scan.launches += 1
     return y

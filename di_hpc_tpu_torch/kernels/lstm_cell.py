@@ -39,7 +39,8 @@ the kernel's product (a bf16 `torch.matmul` would round its output) -- and
 every stored output is the float32 value rounded once.  For float32 every
 cast is the identity.  Each wrapper dispatches on gxp's dtype to the
 `_f32` or `_bf16` entry point and counts the launch in `launches` or
-`launches_bf16`.
+`launches_bf16`, the launch call inside the span `dihpc.kernel.<wrapper>`
+(`..._bf16`; utils.profiling.span).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.constants import LAYERNORM_EPS
+from ..utils.profiling import span
 from . import _build
 
 __all__ = [
@@ -188,13 +190,6 @@ def _entry(lib, base, dtype):
                                 else "_f32"))
 
 
-def _count(wrapper, dtype) -> None:
-    if dtype == torch.bfloat16:
-        wrapper.launches_bf16 += 1
-    else:
-        wrapper.launches += 1
-
-
 def _expect_shapes(name, shapes: dict) -> None:
     """shapes: argument name -> (tensor, expected shape)."""
     for arg, (t, want) in shapes.items():
@@ -225,14 +220,23 @@ def _layer_dims(name, gxp, wh):
     return S, B, H
 
 
-def _launch(name, fn, device, *args) -> None:
-    """Call a C launch function on the current stream of `device` and raise
-    on a refused launch."""
+def _launch(wrapper, dtype, fn, device, *args) -> None:
+    """Call a C launch function on the current stream of `device` inside
+    the span `dihpc.kernel.<wrapper>` (`..._bf16` for bf16 streams), raise
+    on a refused launch, and count the launch in the wrapper's `launches`
+    or `launches_bf16`."""
+    name = wrapper.__name__
+    bf16 = dtype == torch.bfloat16
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                      for a in args), stream)
+        with span("dihpc.kernel." + name + ("_bf16" if bf16 else "")):
+            status = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                          for a in args), stream)
     _build.check_status(name, status)
+    if bf16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def _lstm_layer_cuda(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, norm,
@@ -262,12 +266,11 @@ def _lstm_layer_cuda(gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, norm,
     cn = torch.empty_like(hn)
     outs = (y, c_seq, hn, cn, S, B, H, int(bool(norm)))
     if rows is None:
-        _launch(name, _entry(lib, "lstm_layer_fwd", dt), gxp.device, *args,
-                *outs)
+        _launch(lstm_layer_fused, dt, _entry(lib, "lstm_layer_fwd", dt),
+                gxp.device, *args, *outs)
     else:
-        _launch(name, lib.lstm_layer_fwd_at_rows, gxp.device, item, rows,
-                *args, *outs)
-    _count(lstm_layer_fused, dt)
+        _launch(lstm_layer_fused, dt, lib.lstm_layer_fwd_at_rows, gxp.device,
+                item, rows, *args, *outs)
     return y, c_seq, hn, cn
 
 
@@ -444,11 +447,10 @@ def lstm_layer_bwd_v2(gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0,
     dgxp, dg_pre = torch.empty_like(gxp), torch.empty_like(gxp)
     part = torch.empty((groups, 3, G), dtype=torch.float32, device=gxp.device)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(h0)
-    _launch(name, _entry(lib, "lstm_layer_bwd_v2", dt), gxp.device, gxp, y,
-            c_seq, dy, wh, wh.t().contiguous(), glnx, blnx, gln, bln, bias,
-            h0, c0, dhn, dcn, dgxp, dg_pre, part, dh0, dc0, S, B, H,
-            int(bool(norm)))
-    _count(lstm_layer_bwd_v2, dt)
+    _launch(lstm_layer_bwd_v2, dt, _entry(lib, "lstm_layer_bwd_v2", dt),
+            gxp.device, gxp, y, c_seq, dy, wh, wh.t().contiguous(), glnx,
+            blnx, gln, bln, bias, h0, c0, dhn, dcn, dgxp, dg_pre, part, dh0,
+            dc0, S, B, H, int(bool(norm)))
     dgln, dglnx, dsum = part.sum(dim=0)
     return dgxp, dg_pre, dgln, dglnx, dsum, dh0, dc0
 
@@ -510,10 +512,9 @@ def _lstm_layer_bwd_v1_cuda(gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn,
     lib = _build.library().cdll
     dgate, dg_pre = torch.empty_like(gx), torch.empty_like(gx)
     dh0, dc0 = torch.empty_like(dhn), torch.empty_like(dhn)
-    _launch(name, _entry(lib, "lstm_layer_bwd_v1", dt), gx.device, *args,
-            dgate, dg_pre, dh0, dc0, S, B, H, int(bool(norm)),
-            shape["cluster"], shape["rows_per_group"])
-    _count(lstm_layer_bwd_v1, dt)
+    _launch(lstm_layer_bwd_v1, dt, _entry(lib, "lstm_layer_bwd_v1", dt),
+            gx.device, *args, dgate, dg_pre, dh0, dc0, S, B, H,
+            int(bool(norm)), shape["cluster"], shape["rows_per_group"])
     return dgate, dg_pre, dh0, dc0
 
 
@@ -561,8 +562,9 @@ def _layer_backward(saved, dy, dhn, dcn, norm):
             gxp, y, c_seq, dy, wh, glnx, blnx, gln, bln, bias, h0, c0, dhn,
             dcn, norm)
         # dWh from the unshifted stash: h_{t-1} is h0 at t = 0, y[t-1] after.
-        dwh = h0.t() @ dg_pre[0] + (y[:-1].reshape(-1, H).t()
-                                    @ dg_pre[1:].reshape(-1, G))
+        with span("dihpc.gemm.lstm_dwh"):
+            dwh = h0.t() @ dg_pre[0] + (y[:-1].reshape(-1, H).t()
+                                        @ dg_pre[1:].reshape(-1, G))
     else:
         # V1: the x-side gate and gh_pre as sequence-wide tensor code first,
         # the LN_x backward and the parameter sums after, in float32.
@@ -571,7 +573,8 @@ def _layer_backward(saved, dy, dhn, dcn, norm):
         dgate, dg_pre, dh0, dc0 = lstm_layer_bwd_v1(
             gx, gh_pre, c_prev, c_seq, dy, wh, gln, bln, dhn, dcn, norm)
         h_prev = torch.cat([h0[None], y[:-1]])
-        dwh = h_prev.reshape(-1, H).t() @ dg_pre.reshape(-1, G)
+        with span("dihpc.gemm.lstm_dwh"):
+            dwh = h_prev.reshape(-1, H).t() @ dg_pre.reshape(-1, G)
         dgate32 = dgate.float()
         dsum = dgate32.sum(dim=(0, 1))
         dgxp = dgate                    # without LN_x, gx = gxp + bias
@@ -597,7 +600,9 @@ def _layer_backward(saved, dy, dhn, dcn, norm):
 class _LayerFunction(torch.autograd.Function):
     """lstm_layer_fused with its hand-derived backward: the counterpart of
     the custom VJP at lstm_cell.py:246-709.  The forward stashes the cell
-    states; the backward returns the 9 gradients in argument order."""
+    states; the backward returns the 9 gradients in argument order, inside
+    the span `dihpc.lstm.layer.kernel.bwd` (the backward of a layer on
+    network.lstm_fused's kernel route)."""
 
     @staticmethod
     def forward(ctx, gxp, wh, glnx, blnx, gln, bln, bias, h0, c0, norm):
@@ -610,6 +615,8 @@ class _LayerFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dhn, dcn):
-        grads = _layer_backward(ctx.saved_tensors, dy.contiguous(),
-                                dhn.contiguous(), dcn.contiguous(), ctx.norm)
+        with span("dihpc.lstm.layer.kernel.bwd"):
+            grads = _layer_backward(ctx.saved_tensors, dy.contiguous(),
+                                    dhn.contiguous(), dcn.contiguous(),
+                                    ctx.norm)
         return (*grads, None)

@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 
 __all__ = ["vtrace_losses", "vtrace_losses_plain", "vtrace_returns_adv",
@@ -235,9 +236,10 @@ def _launch_vtrace(name, entry, tensors, T, B, clips, cols, chunks):
     shape = vtrace_launch_shape(T, B, _sms(device), cols, chunks)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = entry(*(t.data_ptr() for t in tensors), T, B,
-                       *_scalars(*clips), shape["cols"], shape["chunks"],
-                       stream)
+        with span("dihpc.kernel." + name):
+            status = entry(*(t.data_ptr() for t in tensors), T, B,
+                           *_scalars(*clips), shape["cols"], shape["chunks"],
+                           stream)
     _build.check_status(name, status)
 
 
@@ -429,10 +431,12 @@ def _launch(name, fn, tensors, gamma, lambda_, *tiling):
     `tiling` is a chunked kernel's (cols, chunks)."""
     T, B = tensors[1].shape
     with torch.cuda.device(tensors[1].device):
+        entry = getattr(_build.library().cdll, fn)
         stream = torch.cuda.current_stream().cuda_stream
-        status = getattr(_build.library().cdll, fn)(
-            *(t.data_ptr() for t in tensors), T, B, float(gamma),
-            float(gamma * lambda_), *tiling, stream)
+        with span("dihpc.kernel." + name):
+            status = entry(*(t.data_ptr() for t in tensors), T, B,
+                           float(gamma), float(gamma * lambda_), *tiling,
+                           stream)
     _build.check_status(name, status)
 
 
@@ -636,10 +640,12 @@ def _upgo_advantages_cuda(rhos, reward, value, cols=None, chunks=None):
     tiling = _tiling(upgo_advantages_launch_shape, reward, cols, chunks)
     adv = torch.empty_like(reward)
     with torch.cuda.device(reward.device):
+        entry = _build.library().cdll.upgo_advantages_f32
         stream = torch.cuda.current_stream().cuda_stream
-        status = _build.library().cdll.upgo_advantages_f32(
-            rhos.data_ptr(), reward.data_ptr(), value.data_ptr(),
-            adv.data_ptr(), T, B, *tiling, stream)
+        with span("dihpc.kernel." + name):
+            status = entry(rhos.data_ptr(), reward.data_ptr(),
+                           value.data_ptr(), adv.data_ptr(), T, B, *tiling,
+                           stream)
     _build.check_status(name, status)
     upgo_advantages.launches += 1
     return adv
@@ -672,10 +678,12 @@ def _upgo_loss_cuda(rhos, lp, reward, value, cols=None, chunks=None):
     tiling = _tiling(upgo_loss_launch_shape, reward, cols, chunks)
     parts = torch.empty((1, B), dtype=torch.float32, device=reward.device)
     with torch.cuda.device(reward.device):
+        entry = _build.library().cdll.upgo_loss_f32
         stream = torch.cuda.current_stream().cuda_stream
-        status = _build.library().cdll.upgo_loss_f32(
-            rhos.data_ptr(), lp.data_ptr(), reward.data_ptr(),
-            value.data_ptr(), parts.data_ptr(), T, B, *tiling, stream)
+        with span("dihpc.kernel.upgo_loss"):
+            status = entry(rhos.data_ptr(), lp.data_ptr(), reward.data_ptr(),
+                           value.data_ptr(), parts.data_ptr(), T, B, *tiling,
+                           stream)
     _build.check_status("upgo_loss", status)
     upgo_loss.launches += 1
     # One partial per column, summed by torch.sum in a fixed order: no float

@@ -12,6 +12,11 @@ bf16 (the LSTM kernels' bf16 streams) while the master parameters, the
 V-trace loss and the optimizer stay float32.  `make_sharded_train_step` is
 the same step over a data x model mesh of ranks (the placement of
 `actor_critic_shardings`), with its collectives in parallel._comm.
+
+While a profiler runs, `make_train_step`'s step is the spans
+`dihpc.train.{zero_grad,forward,backward,optimizer}` and the forward's
+embedding and heads `dihpc.gemm.embed`, `dihpc.gemm.heads`
+(utils.profiling).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..parallel.api import lstm_param_shardings
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, NamedSharding,
                              gather_params, replicated)
 from ..utils.checkpoint import tree_flatten
+from ..utils.profiling import span
 
 __all__ = [
     "ActorCriticConfig", "ActorCriticArrays", "ActorCriticParams",
@@ -127,10 +133,12 @@ def actor_critic_forward(
     lstm = params.lstm
     if not isinstance(lstm, LSTMParams):
         lstm = lstm.params()
-    x = torch.relu(torch.matmul(obs, params.embed_w) + params.embed_b)
+    with span("dihpc.gemm.embed"):
+        x = torch.relu(torch.matmul(obs, params.embed_w) + params.embed_b)
     y, next_state = lstm_fused(lstm, x, state, norm_type)
-    logits = torch.matmul(y, params.policy_w) + params.policy_b
-    value = torch.matmul(y, params.value_w[:, 0]) + params.value_b[0]
+    with span("dihpc.gemm.heads"):
+        logits = torch.matmul(y, params.policy_w) + params.policy_b
+        value = torch.matmul(y, params.value_w[:, 0]) + params.value_b[0]
     return logits, value, next_state
 
 
@@ -231,10 +239,14 @@ def make_train_step(
         return total, losses
 
     def train_step(params: ActorCriticParams, batch: TrainBatch) -> dict:
-        optimizer.zero_grad(set_to_none=True)
-        total, losses = loss_fn(params, batch)
-        total.backward()
-        optimizer.step()
+        with span("dihpc.train.zero_grad"):
+            optimizer.zero_grad(set_to_none=True)
+        with span("dihpc.train.forward"):
+            total, losses = loss_fn(params, batch)
+        with span("dihpc.train.backward"):
+            total.backward()
+        with span("dihpc.train.optimizer"):
+            optimizer.step()
         return _metrics(total, losses)
 
     return train_step

@@ -31,7 +31,11 @@ plain version there: the same function as the recurrent path, up to
 rounding.  The kernel wrappers themselves never fall back: called
 directly, they raise on what they cannot take.  `lstm_fused.routes`
 counts the layers that took each path ({"kernel": n, "recurrent": n};
-`reset_route_counts` zeroes it).
+`reset_route_counts` zeroes it).  While a profiler runs, each layer is
+also the span `dihpc.lstm.layer.<path>` and its input projection
+`dihpc.gemm.lstm_input` (utils.profiling); on the kernels' path the
+layer's backward is `dihpc.lstm.layer.kernel.bwd`, the span of its
+autograd.Function's backward.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from ..kernels.lstm_cell import (STREAM_DTYPES, V2_MIN_BATCH,
 from ..ops._validate import _fail
 from ..origin.rnn import (LSTMParams, dropout_mask, init_lstm_params,
                           layer_norm)
+from ..utils.profiling import span
 
 __all__ = [
     "lstm_fused", "LSTM", "LSTMWeights", "LSTMParams", "init_lstm_params",
@@ -217,28 +222,30 @@ def lstm_fused(
     x = inputs
     hs, cs = [], []
     for l in range(L):
-        gxp = _matmul(x, params.wx[l], x.dtype)      # (S, B, 4H), hoisted
+        with span("dihpc.gemm.lstm_input"):
+            gxp = _matmul(x, params.wx[l], x.dtype)  # (S, B, 4H), hoisted
         wh = params.wh[l]
         if norm_type == "LN":
             g_x, b_x = params.ln_gamma_x[l], params.ln_beta_x[l]
             g_h, b_h = params.ln_gamma_h[l], params.ln_beta_h[l]
         else:
             g_x = b_x = g_h = b_h = None
-        route = _route(remat, gxp, wh, (gxp, wh, g_x, b_x, g_h, b_h,
-                                        params.bias[l], H0[l], C0[l]))
+        layer_args = (gxp, wh, g_x, b_x, g_h, b_h, params.bias[l], H0[l],
+                      C0[l])
+        route = _route(remat, gxp, wh, layer_args)
         lstm_fused.routes[route] += 1
         if route == "recurrent":
-            x, h_l, c_l = _recurrent_layer(gxp, wh, g_x, b_x, g_h, b_h,
-                                           params.bias[l], H0[l], C0[l],
-                                           remat)
-        else:
+            with span("dihpc.lstm.layer.recurrent"):
+                x, h_l, c_l = _recurrent_layer(*layer_args, remat)
+        else:       # its backward's span is _LayerFunction.backward's
             if g_x is None:
                 g_x = g_h = torch.ones_like(params.bias[l])
                 b_x = b_h = torch.zeros_like(params.bias[l])
-            x, h_l, c_l = lstm_layer_fused(
-                gxp, wh, g_x, b_x, g_h, b_h, params.bias[l],
-                H0[l].to(gxp.dtype).contiguous(),
-                C0[l].to(gxp.dtype).contiguous(), norm_type == "LN")
+            with span("dihpc.lstm.layer.kernel"):
+                x, h_l, c_l = lstm_layer_fused(
+                    gxp, wh, g_x, b_x, g_h, b_h, params.bias[l],
+                    H0[l].to(gxp.dtype).contiguous(),
+                    C0[l].to(gxp.dtype).contiguous(), norm_type == "LN")
         hs.append(h_l)
         cs.append(c_l)
         if dropout > 0.0 and l != L - 1:

@@ -7,7 +7,10 @@ ordinary tensor ops; a hand-written kernel comes only if a measurement shows
 it pays.  Both functions are torch.autograd.Functions with the JAX package's
 stash-free backward (ops/categorical.py:137-206): it saves the logits, the
 actions and the per-row log-sum-exp (and entropy), nothing of size (..., N),
-and recomputes the softmax from them.
+and recomputes the softmax from them.  While a profiler runs, each
+forward is the span `dihpc.categorical.logp_entropy` or
+`dihpc.categorical.logp`, and each backward the same name with `.bwd`
+(utils.profiling.span).
 
 Masked-logit contract (the same as the JAX package's): logits <= -1e9,
 -inf included, are masked-invalid.  Data is clamped at -1e9 before the
@@ -24,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.constants import MASKED_LOGIT
+from ..utils.profiling import span
 
 __all__ = ["logp_entropy", "logp"]
 
@@ -53,38 +57,43 @@ def _onehot_grad(x, actions, glp):
 class _LogpEntropy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, actions):
-        lp, ent, lse = _stats(logits, actions, with_ent=True)
+        with span("dihpc.categorical.logp_entropy"):
+            lp, ent, lse = _stats(logits, actions, with_ent=True)
         ctx.save_for_backward(logits, actions, lse, ent)
         return lp, ent
 
     @staticmethod
     def backward(ctx, glp, gent):
         logits, actions, lse, ent = ctx.saved_tensors
-        x = logits.float()
-        logp_all = x - lse[..., None]
-        p = torch.exp(logp_all)
-        glp, gent = glp[..., None].float(), gent[..., None].float()
-        # d logp_a / dx = onehot - p;  dH / dx_j = -p_j (logp_j + H).
-        dx = _onehot_grad(x, actions, glp) - p * (
-            glp + gent * (torch.clamp_min(logp_all, _LOGP_FLOOR)
-                          + ent[..., None]))
-        return dx.to(logits.dtype), None
+        with span("dihpc.categorical.logp_entropy.bwd"):
+            x = logits.float()
+            logp_all = x - lse[..., None]
+            p = torch.exp(logp_all)
+            glp, gent = glp[..., None].float(), gent[..., None].float()
+            # d logp_a / dx = onehot - p;  dH / dx_j = -p_j (logp_j + H).
+            dx = _onehot_grad(x, actions, glp) - p * (
+                glp + gent * (torch.clamp_min(logp_all, _LOGP_FLOOR)
+                              + ent[..., None]))
+            return dx.to(logits.dtype), None
 
 
 class _Logp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, actions):
-        lp, _, lse = _stats(logits, actions, with_ent=False)
+        with span("dihpc.categorical.logp"):
+            lp, _, lse = _stats(logits, actions, with_ent=False)
         ctx.save_for_backward(logits, actions, lse)
         return lp
 
     @staticmethod
     def backward(ctx, glp):
         logits, actions, lse = ctx.saved_tensors
-        x = logits.float()
-        glp = glp[..., None].float()
-        dx = _onehot_grad(x, actions, glp) - torch.exp(x - lse[..., None]) * glp
-        return dx.to(logits.dtype), None
+        with span("dihpc.categorical.logp.bwd"):
+            x = logits.float()
+            glp = glp[..., None].float()
+            dx = (_onehot_grad(x, actions, glp)
+                  - torch.exp(x - lse[..., None]) * glp)
+            return dx.to(logits.dtype), None
 
 
 def logp_entropy(logits: torch.Tensor, actions: torch.Tensor):

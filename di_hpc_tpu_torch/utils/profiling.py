@@ -3,6 +3,33 @@ package's utils/profiling.py:
 
  - `trace(log_dir)`: a context manager around torch.profiler that writes a
    Chrome trace (view in Perfetto or chrome://tracing) into `log_dir`;
+ - `span(name)`: the port's own ranges in that trace.  While a profiler
+   runs in the process a span is a profiler range (torch's
+   `_RecordFunctionFast`, the range its compiled graphs open, else
+   `torch.profiler.record_function`), so it lands in the profiler's trace
+   beside the card's activity, on its clock, and every kernel launched
+   inside one can be put down to it by its launch's correlation id.  The
+   fast range is a plain host range, with no copy on the card's timeline,
+   and costs a profiled step far less than a `record_function` range,
+   which the profiler also mirrors onto the card's timeline.  With no
+   profiler running `span` returns one shared null context.  Either way
+   the ops and their order are the same, no autograd node is added, and a
+   span does no device work.  A backward is spanned inside an
+   autograd.Function's `backward`, as `<name>.bwd`, on whichever thread
+   runs it (for CUDA tensors the autograd engine's thread for the card,
+   not the caller's).  Every name starts with `dihpc.`:
+     dihpc.train.{zero_grad,forward,backward,optimizer}  the learner step
+       (models.make_train_step);
+     dihpc.gemm.{embed,heads,lstm_input}  the forward's matrix products
+       outside the LSTM kernels; dihpc.gemm.lstm_dwh  the recurrent
+       weight gradient, in the kernel route's layer backward;
+     dihpc.lstm.layer.{kernel,recurrent}  one per LSTM layer, named by the
+       route it took (network.lstm_fused.routes counts the same); the
+       kernel route's backward dihpc.lstm.layer.kernel.bwd;
+     dihpc.kernel.<wrapper>[_bf16]  one per launch of a hand-written
+       kernel, around the launch call, counted as the wrapper's
+       `.launches` (`launches_bf16`) counts it;
+     dihpc.categorical.{logp_entropy,logp} (+ .bwd)  the categorical head;
  - `bench_fn`: per-call time as the difference between k2 and k1
    back-to-back calls, which cancels the fixed cost around a run;
  - `roofline`: the measured time against the card's HBM speed of light for
@@ -18,10 +45,12 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+from torch.autograd import profiler as _profiler
 
 from .checkpoint import tree_flatten
 
-__all__ = ["trace", "bench_fn", "Roofline", "roofline", "HBM_BYTES_PER_S"]
+__all__ = ["trace", "span", "bench_fn", "Roofline", "roofline",
+           "HBM_BYTES_PER_S"]
 
 # Peak HBM bandwidth in bytes/s, by torch.cuda.get_device_name(), from
 # NVIDIA's data sheets (at the card's full power limit).
@@ -47,6 +76,20 @@ def trace(log_dir: str | Path = DEFAULT_TRACE_DIR):
         yield str(log_dir)
     prof.export_chrome_trace(
         os.path.join(str(log_dir), f"trace_{time.time_ns()}.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast",
+                 _profiler.record_function)
+
+
+def span(name: str):
+    """A profiler range called `name` while a profiler runs in the
+    process, else one shared null context (a check of torch's own flag and
+    nothing more)."""
+    if _profiler._is_profiler_enabled:
+        return _RANGE(name)
+    return _NO_SPAN
 
 
 def _first_tensor(out) -> torch.Tensor:

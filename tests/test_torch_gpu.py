@@ -25,7 +25,9 @@ CPU's, `TrajectoryBuffer.sample_batch` on the card equal to the CPU's, one
 episodic A2C step (kernels 8 and 6 once per bucket) against the CPU, and a
 checkpoint round trip of card parameters and Adam state; the sharded train
 step in a world of two ranks on the card against the unsharded step, and
-`sample_batch(mesh=)` in a world of one.
+`sample_batch(mesh=)` in a world of one; and the `dihpc.kernel.` and
+`dihpc.lstm.layer.` spans of a profiled train step against
+`kernels.launch_counts()` and `network.lstm_fused.routes`.
 
 Every test here is marked `gpu` and skips without a card (decided in the
 `cuda` fixture, never at import).  This file imports no JAX, so it also
@@ -1978,6 +1980,65 @@ def test_sample_batch_with_a_mesh_of_one_is_the_unsharded_call(cuda):
     for k in want:
         assert got[k].device == want[k].device and \
             chip_smoke.bitwise_equal(got[k], want[k]), k
+
+
+def test_kernel_spans_count_the_launches(cuda):
+    """Under torch.profiler, one make_train_step step at B=64 opens one
+    `dihpc.kernel.<name>` range per launch that `launch_counts()` counts
+    and one `dihpc.lstm.layer.kernel` range per layer that
+    `lstm_fused.routes` counts on the kernels' route; the backward's ranges
+    lie on the autograd engine's thread, not the caller's, and every launch
+    range holds the runtime call of a kernel that ran on the card."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = models.ActorCriticConfig(obs_dim=24, hidden_size=128, num_layers=2,
+                                   action_dim=16)
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    params = models.init_actor_critic(cfg, torch.Generator().manual_seed(21),
+                                      device=cuda)
+    T, B = 8, 64
+    batch = models.TrainBatch(
+        torch.randn(T + 1, B, 24, generator=gen, device=cuda),
+        torch.randint(0, 16, (T, B), generator=gen, device=cuda),
+        torch.randn(T, B, generator=gen, device=cuda),
+        torch.randn(T, B, 16, generator=gen, device=cuda))
+    step = models.make_train_step(
+        cfg, torch.optim.Adam(params.parameters(), lr=1e-3))
+    step(params, batch)
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    network.reset_route_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, batch)
+        torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert network.lstm_fused.routes == {"kernel": 2, "recurrent": 0}
+    counted = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert counted == {"lstm_layer_fused": 2, "lstm_layer_bwd_v2": 2,
+                       "vtrace_losses": 1, "vtrace_returns_adv": 1}
+    events = prof.profiler.kineto_results.events()
+    on_card = lambda e: str(e.device_type()).endswith("CUDA")
+    layers = Counter(e.name() for e in events if not on_card(e)
+                     and e.name().startswith("dihpc.lstm.layer."))
+    assert layers == {"dihpc.lstm.layer.kernel": 2,
+                      "dihpc.lstm.layer.kernel.bwd": 2}
+    spans = [(e.name(), e.start_ns(), e.end_ns(), e.start_thread_id())
+             for e in events if not on_card(e)
+             and e.name().startswith("dihpc.kernel.")]
+    assert Counter(n.removeprefix("dihpc.kernel.") for n, *_ in spans) == \
+        counted
+    threads = lambda name: {t for n, _, _, t in spans if n == name}
+    assert threads("dihpc.kernel.lstm_layer_fused").isdisjoint(
+        threads("dihpc.kernel.lstm_layer_bwd_v2"))
+    ran = {e.correlation_id() for e in events if on_card(e)}
+    calls = [(e.start_ns(), e.start_thread_id()) for e in events
+             if not on_card(e) and e.name().startswith("cu")
+             and e.correlation_id() in ran]
+    for name, s, e, thread in spans:
+        assert any(t == thread and s <= at <= e for at, t in calls), name
 
 
 if __name__ == "__main__":
