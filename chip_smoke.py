@@ -54,8 +54,15 @@ Phases, each printing one JSON line (`{"phase": ...}`):
                 repeatable and prints its launch (columns and chunks per
                 CTA, super-tiles, grid, ptxas' registers and spills); the
                 T=1024 rows time the chosen tiling against 32 columns x
-                8 chunks in turns.  The scan kernels (gae, lambda_returns,
-                td_lambda_loss, td_lambda_err, linear_scan both ways with a
+                8 chunks in turns.  The categorical head's kernels
+                (categorical_fwd with and without the entropy,
+                categorical_bwd) run at the V-trace cell's T=1024, B=4096,
+                N=128 in float32 and (with the entropy) in bf16, with dense
+                N(0, 1) incoming gradients, each bitwise repeatable and the
+                float32 backward bitwise the plain version's, with ptxas'
+                lines and the plain version's time.  The scan kernels
+                (gae, lambda_returns, td_lambda_loss, td_lambda_err,
+                linear_scan both ways with a
                 zero, a scalar and a (B,) boundary, upgo_advantages,
                 upgo_loss) run at T=1024, B=4096, at a ragged B and at T=1;
                 the four row-constant ones and both UPGO kernels must be
@@ -650,6 +657,109 @@ def vtrace_kernel_rows(rng, dev) -> dict:
     return rows
 
 
+# The categorical head's rows: the V-trace cell's shape (T 1024, B 4096,
+# N 128), whose float32 logits plane is 2.147 GB, in float32 and bf16.
+CATEGORICAL_ROW = (1024, 4096, 128)
+_BF16_TAG = "13__nv_bfloat16"
+# The instantiations that run there: label -> (kernel, tag of the mangled
+# name: the logits' type, 4 logits a lane, with or without the entropy, one
+# chunk a row).
+CATEGORICAL_INSTANCES = {
+    "categorical_fwd": ("categorical_fwd_kernel", "IfLi4ELb1ELb1E"),
+    "categorical_fwd logp": ("categorical_fwd_kernel", "IfLi4ELb0ELb1E"),
+    "categorical_bwd": ("categorical_bwd_kernel", "IfLi4ELb1ELb1E"),
+    "categorical_fwd bf16": ("categorical_fwd_kernel",
+                             f"I{_BF16_TAG}Li4ELb1ELb1E"),
+    "categorical_bwd bf16": ("categorical_bwd_kernel",
+                             f"I{_BF16_TAG}Li4ELb1ELb1E")}
+
+
+def categorical_bounds(T, B, N):
+    """(bytes, ops) of the head's kernels: the logits read once, the int32
+    actions and the per-row statistics read or written once (the
+    forward's logp, lse and entropy; the backward's lse, entropy and both
+    dense incoming gradients), the backward's gradient written once (2
+    bytes a logit in bf16, else 4); 7, 5 and 9 f32 operations per logit
+    (clamp, max, subtract, exp, add and the entropy's multiply-add; without
+    it the last two go; the backward's subtract, exp, floor, add,
+    multiply, add, multiply, compare and subtract)."""
+    plane, rows = T * B * N, T * B
+    fwd = lambda item: (item * plane + 4 * 4 * rows, 7 * plane)
+    bwd = lambda item: (2 * item * plane + 5 * 4 * rows, 9 * plane)
+    return {"categorical_fwd": fwd(4),
+            "categorical_fwd logp": (4 * plane + 3 * 4 * rows, 5 * plane),
+            "categorical_bwd": bwd(4),
+            "categorical_fwd bf16": fwd(2), "categorical_bwd bf16": bwd(2)}
+
+
+def categorical_kernel_rows(dev) -> dict:
+    """The categorical head's kernels against their plain versions at
+    CATEGORICAL_ROW (logits drawn on the card from their own seed, int32
+    actions, and a dense N(0, 1) plane each for the incoming logp and
+    entropy gradients, so the backward's entropy term is as large as its
+    one-hot term): the float32 forward with and without the entropy and
+    the backward with it, then the bf16 forward and backward on the same
+    logits rounded to bf16.  Each row is bitwise repeatable and holds the
+    kernel against the plain version at RTOL/ATOL (bf16 gradients at 1e-2
+    relative, one bf16 rounding); the float32 backward must equal the plain
+    version bit for bit; each row gives its ptxas lines, cold and L2-warm
+    times, the plain version's time and the bytes bound."""
+    T, B, N = CATEGORICAL_ROW
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    x = torch.randn((T, B, N), generator=gen, device=dev)
+    a = torch.randint(0, N, (T, B), generator=gen, device=dev,
+                      dtype=torch.int32)
+    glp = torch.randn((T, B), generator=gen, device=dev)
+    gent = torch.randn((T, B), generator=gen, device=dev)
+    bounds = categorical_bounds(T, B, N)
+    log = _build.library().build_log
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x if dtype == torch.float32 else x.to(dtype)
+        _, ent, lse = kernels.categorical_fwd(xd, a, True)
+        calls = {
+            "categorical_fwd": (
+                lambda: kernels.categorical_fwd(xd, a, True),
+                lambda: kernels.categorical_fwd_plain(xd, a, True)),
+            "categorical_fwd logp": (
+                lambda: kernels.categorical_fwd(xd, a, False),
+                lambda: kernels.categorical_fwd_plain(xd, a, False)),
+            "categorical_bwd": (
+                lambda: [kernels.categorical_bwd(xd, a, lse, ent, glp,
+                                                  gent)],
+                lambda: [kernels.categorical_bwd_plain(xd, a, lse, ent, glp,
+                                                       gent)])}
+        if dtype == torch.bfloat16:
+            del calls["categorical_fwd logp"]
+        for key, (run, plain) in calls.items():
+            if dtype == torch.bfloat16:
+                key += " bf16"
+            got = [t for t in run() if t is not None]
+            again = [t for t in run() if t is not None]
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, h) for g, h in zip(got, again)):
+                raise AssertionError(f"{key}: repeated runs differ")
+            want = [t for t in plain() if t is not None]
+            equal = all(torch.equal(g, h) for g, h in zip(got, want))
+            if key == "categorical_bwd" and not equal:
+                raise AssertionError(f"{key}: the gradient differs from the "
+                                     f"plain version's")
+            tol = {"rtol": 1e-2, "atol": 1e-5} if key == \
+                "categorical_bwd bf16" else {}
+            kernel, tag = CATEGORICAL_INSTANCES[key]
+            row = {"shape": f"T={T},B={B},N={N}",
+                   "bitwise_repeatable": True, "equal_to_plain": equal,
+                   "ptxas": ptxas_of(log, kernel, tag),
+                   **compare(f"{key} T={T}", got, want, **tol)}
+            del got, again, want
+            row.update(kernel_ms(run, per_rep=3))
+            row["plain_ms"] = cuda_ms(plain, 3, warmup=1)
+            row["bound_ms"], row["bound_by"] = bound_ms(*bounds[key])
+            rows[f"{key} T={T}"] = row
+        del xd, ent, lse
+    return rows
+
+
 def scan_bounds(T, B):
     """(bytes, ops) of the four row-constant scan kernels: each input read
     once (denom (T,) for GAE), each output written once; 6, 4, 7 and 5 f32
@@ -1098,6 +1208,7 @@ def phase_kernels(dev) -> dict:
         rows.update(bwd_kernel_rows(rng, dev))
 
         rows.update(vtrace_kernel_rows(rng, dev))
+        rows.update(categorical_kernel_rows(dev))
         rows.update(scan_kernel_rows(rng, dev))
         rows.update(full_plane_kernel_rows(rng, dev))
         rows.update(bf16_kernel_rows(rng, dev))
@@ -3684,6 +3795,12 @@ KERNELS = (
      "di_hpc_tpu/pallas_kernels/rl_scans.py:333", "upgo_advantages T=1024"),
     ("upgo_loss", "di_hpc_tpu_torch/csrc/rl_scans.cu",
      "di_hpc_tpu/pallas_kernels/rl_scans.py:391", "upgo_loss T=1024"),
+    ("categorical_fwd", "di_hpc_tpu_torch/csrc/categorical.cu",
+     "none (XLA fusion): di_hpc_tpu/ops/categorical.py:37",
+     "categorical_fwd T=1024"),
+    ("categorical_bwd", "di_hpc_tpu_torch/csrc/categorical.cu",
+     "none (XLA fusion): di_hpc_tpu/ops/categorical.py:37",
+     "categorical_bwd T=1024"),
     ("lstm_layer_fused_bf16", "di_hpc_tpu_torch/csrc/lstm_layer_cluster.cu",
      "di_hpc_tpu/pallas_kernels/lstm_cell.py:115",
      "lstm_layer_fused bf16 S=33"),

@@ -2,7 +2,9 @@
 and their plain PyTorch versions; the counterpart of
 di_hpc_tpu.pallas_kernels, all 12 of its kernels: the LSTM layer and its
 backwards, V-trace, GAE, the lambda-returns, the TD(lambda) loss, UPGO and
-the generic linear recurrence.
+the generic linear recurrence; and two that replace no TPU kernel, the
+categorical head's forward and backward (the JAX package leaves that head
+to XLA fusion).
 
 Each wrapper runs its plain version when every tensor lies on the CPU,
 launches its kernel for CUDA tensors, and raises on what the kernel cannot
@@ -19,6 +21,12 @@ names.  Neither the counters nor the spans see a replay of a captured
 CUDA graph: both count calls of the wrappers.
 """
 
+from .categorical import (
+    categorical_bwd,
+    categorical_bwd_plain,
+    categorical_fwd,
+    categorical_fwd_plain,
+)
 from .linear_scan import (
     linear_scan,
     linear_scan_forward,
@@ -70,7 +78,8 @@ from .rl_scans import (
 KERNEL_WRAPPERS = (lstm_layer_fused, lstm_layer_bwd_v2, lstm_layer_bwd_v1,
                    vtrace_losses, vtrace_returns_adv, gae, lambda_returns,
                    td_lambda_loss, td_lambda_err, linear_scan,
-                   upgo_advantages, upgo_loss)
+                   upgo_advantages, upgo_loss, categorical_fwd,
+                   categorical_bwd)
 BF16_WRAPPERS = (lstm_layer_fused, lstm_layer_bwd_v2, lstm_layer_bwd_v1)
 
 

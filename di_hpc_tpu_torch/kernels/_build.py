@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ll = ctypes.c_longlong
 # C signature of every exported function: name -> (restype, argtypes).
 _SIGNATURES = {
     "lstm_layer_fwd_f32": (_i, [_p] * 13 + [_i] * 4 + [_p]),
@@ -68,6 +69,12 @@ _SIGNATURES = {
     "upgo_advantages_f32": (_i, [_p] * 4 + [_i] * 4 + [_p]),
     "upgo_loss_f32": (_i, [_p] * 5 + [_i] * 4 + [_p]),
     "linear_scan_f32": (_i, [_p] * 4 + [_i] * 5 + [_p]),
+    "categorical_fwd_f32": (_i, [_p, _p, _i, _ll, _i, _i] + [_p] * 4),
+    "categorical_fwd_bf16": (_i, [_p, _p, _i, _ll, _i, _i] + [_p] * 4),
+    "categorical_bwd_f32": (_i, [_p, _p, _i, _p, _p, _p, _i, _p, _i, _ll,
+                                 _i, _i, _p, _p]),
+    "categorical_bwd_bf16": (_i, [_p, _p, _i, _p, _p, _p, _i, _p, _i, _ll,
+                                  _i, _i, _p, _p]),
     "dihpc_error_string": (ctypes.c_char_p, [_i]),
 }
 

@@ -1,10 +1,18 @@
-"""Categorical head: log-prob of the taken action and entropy, in plain
-PyTorch.
+"""Categorical head: log-prob of the taken action and entropy.
 
 The JAX package leaves this head to XLA fusion and has no Pallas kernel for
-it (di_hpc_tpu/ops/categorical.py records why), so the port computes it with
-ordinary tensor ops; a hand-written kernel comes only if a measurement shows
-it pays.  Both functions are torch.autograd.Functions with the JAX package's
+it (di_hpc_tpu/ops/categorical.py records why).  The route depends on the
+device alone.  CPU tensors run the plain PyTorch body
+(kernels.categorical_fwd_plain and categorical_bwd_plain).  CUDA tensors
+run two hand-written kernels (kernels.categorical_fwd and categorical_bwd,
+csrc/categorical.cu): the forward reads each logits tensor once, the
+backward reads the logits once and writes their gradient once.  Before a
+launch, logits other than float32 or bfloat16 are cast to float32 (the
+plain body computes in float32 too), strided logits are made contiguous and
+actions of another dtype become int64; the gradient is cast back to the
+logits' dtype.  `kernels.launch_counts()` counts the launches.
+
+Both functions are torch.autograd.Functions with the JAX package's
 stash-free backward (ops/categorical.py:137-206): it saves the logits, the
 actions and the per-row log-sum-exp (and entropy), nothing of size (..., N),
 and recomputes the softmax from them.  While a profiler runs, each
@@ -12,53 +20,58 @@ forward is the span `dihpc.categorical.logp_entropy` or
 `dihpc.categorical.logp`, and each backward the same name with `.bwd`
 (utils.profiling.span).
 
-Masked-logit contract (the same as the JAX package's): logits <= -1e9,
--inf included, are masked-invalid.  Data is clamped at -1e9 before the
-reduction, so a masked logit has probability exactly 0 in every statistic,
-and a masked TAKEN action's logp is finite (about -1e9 - lse), never -inf.
-The gradient's one-hot term is zero where the taken logit is strictly below
--1e9 (the true derivative through the clamp), and logp is clamped at -88 in
-the entropy term, where exp already underflows to 0, so a -inf logit gives
-a zero gradient rather than 0 * inf.
+Masked-logit contract (the same as the JAX package's, on both routes):
+logits <= -1e9, -inf included, are masked-invalid.  Data is clamped at -1e9
+before the reduction, so a masked logit has probability exactly 0 in every
+statistic, and a masked TAKEN action's logp is finite (about -1e9 - lse),
+never -inf.  The gradient's one-hot term is zero where the taken logit is
+strictly below -1e9 (the true derivative through the clamp), and logp is
+clamped at -88 in the entropy term, where exp already underflows to 0, so
+a -inf logit gives a zero gradient rather than 0 * inf.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils.constants import MASKED_LOGIT
+from ..kernels.categorical import (categorical_bwd, categorical_bwd_plain,
+                                   categorical_fwd, categorical_fwd_plain)
 from ..utils.profiling import span
 
 __all__ = ["logp_entropy", "logp"]
 
-# Below this, float32 exp underflows to exactly 0 (ops/categorical.py:152).
-_LOGP_FLOOR = -88.0
+_KERNEL_LOGITS = (torch.float32, torch.bfloat16)
+_KERNEL_ACTIONS = (torch.int32, torch.int64)
 
 
-def _stats(logits: torch.Tensor, actions: torch.Tensor, with_ent: bool):
-    """Per row: (logp of the taken action, entropy or None, log-sum-exp)."""
-    x = torch.clamp_min(logits.float(), MASKED_LOGIT)
-    m = x.amax(dim=-1, keepdim=True)
-    e = torch.exp(x - m)
-    s = e.sum(dim=-1)
-    lse = m[..., 0] + torch.log(s)
-    xa = torch.gather(x, -1, actions.long()[..., None])[..., 0]
-    ent = lse - (e * x).sum(dim=-1) / s if with_ent else None
-    return xa - lse, ent, lse
+def _kernel_inputs(logits, actions):
+    """CUDA logits and actions as the kernels take them: float32 or
+    bfloat16 contiguous logits, int32 or int64 actions."""
+    if logits.dtype not in _KERNEL_LOGITS:
+        logits = logits.float()
+    if actions.dtype not in _KERNEL_ACTIONS:
+        actions = actions.long()
+    return logits.contiguous(), actions
 
 
-def _onehot_grad(x, actions, glp):
-    """glp at the taken action, where its logit is not below the clamp."""
-    cols = torch.arange(x.shape[-1], device=x.device)
-    take = (cols == actions.long()[..., None]) & (x >= MASKED_LOGIT)
-    return torch.where(take, glp, torch.zeros((), device=x.device))
+def _forward(logits, actions, with_ent: bool):
+    if not logits.is_cuda:
+        return categorical_fwd_plain(logits, actions, with_ent)
+    return categorical_fwd(*_kernel_inputs(logits, actions), with_ent)
+
+
+def _backward(logits, actions, lse, ent, glp, gent):
+    if not logits.is_cuda:
+        return categorical_bwd_plain(logits, actions, lse, ent, glp, gent)
+    x, a = _kernel_inputs(logits, actions)
+    return categorical_bwd(x, a, lse, ent, glp, gent).to(logits.dtype)
 
 
 class _LogpEntropy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, actions):
         with span("dihpc.categorical.logp_entropy"):
-            lp, ent, lse = _stats(logits, actions, with_ent=True)
+            lp, ent, lse = _forward(logits, actions, with_ent=True)
         ctx.save_for_backward(logits, actions, lse, ent)
         return lp, ent
 
@@ -66,22 +79,14 @@ class _LogpEntropy(torch.autograd.Function):
     def backward(ctx, glp, gent):
         logits, actions, lse, ent = ctx.saved_tensors
         with span("dihpc.categorical.logp_entropy.bwd"):
-            x = logits.float()
-            logp_all = x - lse[..., None]
-            p = torch.exp(logp_all)
-            glp, gent = glp[..., None].float(), gent[..., None].float()
-            # d logp_a / dx = onehot - p;  dH / dx_j = -p_j (logp_j + H).
-            dx = _onehot_grad(x, actions, glp) - p * (
-                glp + gent * (torch.clamp_min(logp_all, _LOGP_FLOOR)
-                              + ent[..., None]))
-            return dx.to(logits.dtype), None
+            return _backward(logits, actions, lse, ent, glp, gent), None
 
 
 class _Logp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, actions):
         with span("dihpc.categorical.logp"):
-            lp, _, lse = _stats(logits, actions, with_ent=False)
+            lp, _, lse = _forward(logits, actions, with_ent=False)
         ctx.save_for_backward(logits, actions, lse)
         return lp
 
@@ -89,11 +94,7 @@ class _Logp(torch.autograd.Function):
     def backward(ctx, glp):
         logits, actions, lse = ctx.saved_tensors
         with span("dihpc.categorical.logp.bwd"):
-            x = logits.float()
-            glp = glp[..., None].float()
-            dx = (_onehot_grad(x, actions, glp)
-                  - torch.exp(x - lse[..., None]) * glp)
-            return dx.to(logits.dtype), None
+            return _backward(logits, actions, lse, None, glp, None), None
 
 
 def logp_entropy(logits: torch.Tensor, actions: torch.Tensor):

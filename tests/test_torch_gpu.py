@@ -27,7 +27,11 @@ checkpoint round trip of card parameters and Adam state; the sharded train
 step in a world of two ranks on the card against the unsharded step, and
 `sample_batch(mesh=)` in a world of one; and the `dihpc.kernel.` and
 `dihpc.lstm.layer.` spans of a profiled train step against
-`kernels.launch_counts()` and `network.lstm_fused.routes`.
+`kernels.launch_counts()` and `network.lstm_fused.routes`; and the
+categorical head's kernels (ops.logp_entropy and ops.logp on the card)
+against the plain body called on the same card tensors at N from 1 to
+4096, float32 and bf16 logits, int32 and int64 actions, masked logits and
+broadcast incoming gradients, and the inputs the route casts first.
 
 Every test here is marked `gpu` and skips without a card (decided in the
 `cuda` fixture, never at import).  This file imports no JAX, so it also
@@ -328,7 +332,8 @@ def test_forward_and_serving_on_card_match_cpu(cuda):
                       "vtrace_returns_adv": 1, "gae": 0, "lambda_returns": 0,
                       "td_lambda_loss": 0, "td_lambda_err": 0,
                       "linear_scan": 0, "upgo_advantages": 0,
-                      "upgo_loss": 0, "lstm_layer_fused_bf16": 0,
+                      "upgo_loss": 0, "categorical_fwd": 4,
+                      "categorical_bwd": 0, "lstm_layer_fused_bf16": 0,
                       "lstm_layer_bwd_v2_bf16": 0,
                       "lstm_layer_bwd_v1_bf16": 0}
     for i, (g, w) in enumerate(zip(got, want)):
@@ -2018,7 +2023,8 @@ def test_kernel_spans_count_the_launches(cuda):
     assert network.lstm_fused.routes == {"kernel": 2, "recurrent": 0}
     counted = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert counted == {"lstm_layer_fused": 2, "lstm_layer_bwd_v2": 2,
-                       "vtrace_losses": 1, "vtrace_returns_adv": 1}
+                       "vtrace_losses": 1, "vtrace_returns_adv": 1,
+                       "categorical_fwd": 2, "categorical_bwd": 1}
     events = prof.profiler.kineto_results.events()
     on_card = lambda e: str(e.device_type()).endswith("CUDA")
     layers = Counter(e.name() for e in events if not on_card(e)
@@ -2039,6 +2045,178 @@ def test_kernel_spans_count_the_launches(cuda):
              and e.correlation_id() in ran]
     for name, s, e, thread in spans:
         assert any(t == thread and s <= at <= e for at, t in calls), name
+
+
+
+# --------------------------------------------------------- categorical ----
+
+CATEGORICAL_N = (1, 9, 18, 127, 128, 1000, 4096)
+
+
+def _categorical_inputs(seed, N, dtype, act_dtype, dev):
+    """(7, 5, N) logits -- 35 rows, a CTA of 32 rows and a partial one --
+    of `dtype` with masks: a taken action at exactly -1e9 (the one-hot term
+    stays), one at -3e9 and one at -inf (no one-hot term), a row of -inf,
+    rows with -1e9 and -3e9 masks and rows with -inf masks; actions of
+    `act_dtype`."""
+    rng = np.random.default_rng(seed)
+    x = 3 * rng.standard_normal((7, 5, N)).astype(np.float32)
+    a = rng.integers(0, N, (7, 5))
+    x[0, 0, a[0, 0]] = -1e9
+    x[0, 1, a[0, 1]] = -3e9
+    x[0, 2, a[0, 2]] = -np.inf
+    x[0, 3, :] = -np.inf
+    x[1, :, ::2] = -1e9
+    x[2, :, 1::3] = -3e9
+    x[3, :, ::3] = -np.inf
+    return (torch.from_numpy(x).to(dev, dtype),
+            torch.from_numpy(a).to(dev, act_dtype))
+
+
+def _categorical_calls(x, a, w):
+    """lp, entropy and logp of the behaviour side through ops.logp_entropy
+    and ops.logp, then both Functions' gradients: logp_entropy's with a
+    dense glp (w) and an entropy gradient broadcast from one value (a
+    sum's), logp's with a glp broadcast from one value."""
+    xt = x.detach().clone().requires_grad_() if x.is_contiguous() else \
+        x.detach().requires_grad_()
+    lp, ent = ops.logp_entropy(xt, a)
+    lp_b = ops.logp(xt, a)
+    (dx,) = torch.autograd.grad((lp * w).sum() + 0.25 * ent.sum(), xt)
+    (dx_b,) = torch.autograd.grad(lp_b.sum(), xt)
+    return [lp.detach(), ent.detach(), lp_b.detach(), dx, dx_b]
+
+
+def _categorical_plain(x, a, w):
+    """What _categorical_calls gives, from the plain body called directly
+    on the same card tensors."""
+    lp, ent, lse = kernels.categorical_fwd_plain(x, a, True)
+    lp_b, _, lse_b = kernels.categorical_fwd_plain(x, a, False)
+    rows = x.shape[:-1]
+    dx = kernels.categorical_bwd_plain(x, a, lse, ent, w,
+                                       torch.full(rows, 0.25, device=x.device))
+    dx_b = kernels.categorical_bwd_plain(x, a, lse_b, None,
+                                         torch.ones(rows, device=x.device),
+                                         None)
+    return [lp, ent, lp_b, dx, dx_b]
+
+
+def _assert_categorical_close(got, want):
+    names = ("lp", "ent", "lp_b", "dx", "dx_b")
+    for name, g, h in zip(names, got, want):
+        assert g.dtype == h.dtype and torch.isfinite(g).all(), name
+        if g.dtype in (torch.bfloat16, torch.float16):
+            torch.testing.assert_close(g.float(), h.float(), rtol=1e-2,
+                                       atol=1e-5, msg=name)
+        else:
+            torch.testing.assert_close(g, h, rtol=RTOL, atol=ATOL, msg=name)
+
+
+@pytest.mark.parametrize("act_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", CATEGORICAL_N)
+def test_categorical_kernels_match_plain(cuda, N, dtype, act_dtype):
+    """ops.logp_entropy and ops.logp on the card (the kernels) against the
+    plain body called directly on the same card tensors: lp, entropy and
+    both Functions' gradients, at N with one chunk, several and a ragged
+    one, 4-wide and 1-wide loads, masked, -inf and masked-taken logits and
+    broadcast incoming gradients; each kernel's launches one up a call
+    (two forwards, two backwards); every result the same bits on a second
+    run.  float32 outputs at RTOL/ATOL; bf16 (and float16) gradients
+    within 1e-2 relative (one rounding of nearly equal float32 values) and
+    1e-5 absolute."""
+    x, a = _categorical_inputs(40 + N, N, dtype, act_dtype, cuda)
+    w = torch.from_numpy(np.random.default_rng(N).standard_normal(
+        (7, 5)).astype(np.float32)).to(cuda)
+    runs = []
+    for _ in range(2):
+        before = kernels.launch_counts()
+        runs.append(_categorical_calls(x, a, w))
+        after = kernels.launch_counts()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {"categorical_fwd": 2,
+                                              "categorical_bwd": 2}
+    torch.cuda.synchronize()
+    got, again = runs
+    for i, (g, h) in enumerate(zip(got, again)):
+        assert torch.equal(g, h), f"output {i}: repeated runs differ"
+    _assert_categorical_close(got, _categorical_plain(x, a, w))
+    # Taken actions below the clamp get no one-hot term (and p = 0); one at
+    # exactly -1e9 beside unmasked logits (N > 1) keeps it: its gradient is
+    # glp there.
+    dx, dx_b = got[3].float(), got[4].float()
+    for row in (1, 2):
+        col = int(a[0, row])
+        assert float(dx[0, row, col]) == 0.0 == float(dx_b[0, row, col])
+    if N > 1:
+        col = int(a[0, 0])
+        assert float(dx_b[0, 0, col]) == 1.0
+        assert float(dx[0, 0, col]) == float(w[0, 0].to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_categorical_kernels_read_unaligned_logits(cuda, dtype):
+    """Logits whose start is off a 4-element boundary (a contiguous view at
+    an offset of one element) take the kernels with 1-wide loads and give
+    the plain body's results."""
+    from di_hpc_tpu_torch.kernels.categorical import load_width
+
+    x, a = _categorical_inputs(77, 128, dtype, torch.int64, cuda)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and load_width(
+        128, view.data_ptr(), view.element_size()) == 1
+    w = torch.ones((7, 5), device=cuda)
+    before = kernels.launch_counts()["categorical_fwd"]
+    got = _categorical_calls(view, a, w)
+    assert kernels.launch_counts()["categorical_fwd"] == before + 2
+    _assert_categorical_close(got, _categorical_plain(x, a, w))
+
+
+@pytest.mark.parametrize("case", ["float16", "float64", "strided", "int16",
+                                  "uint8"])
+def test_categorical_other_inputs_take_the_kernels_on_card(cuda, case):
+    """float16 and float64 logits (cast to float32), strided logits (made
+    contiguous) and int16 or uint8 actions (cast to int64) take the
+    kernels too: each call launches them, the results are the plain
+    body's on the same tensors and the gradient has the logits' dtype and
+    shape.  The kernels' wrappers themselves raise on these inputs."""
+    x, a = _categorical_inputs(78, 12, torch.float32, torch.int64, cuda)
+    logits, actions = {
+        "float16": (x.half(), a), "float64": (x.double(), a),
+        "strided": (x.transpose(0, 1), a.t()),
+        "int16": (x, a.to(torch.int16)), "uint8": (x, a.to(torch.uint8)),
+    }[case]
+    w = torch.from_numpy(np.random.default_rng(78).standard_normal(
+        actions.shape).astype(np.float32)).to(cuda)
+    before = kernels.launch_counts()
+    got = _categorical_calls(logits, actions, w)
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"categorical_fwd": 2,
+                                          "categorical_bwd": 2}
+    for dx in got[3:]:
+        assert dx.dtype == logits.dtype and dx.shape == logits.shape
+    _assert_categorical_close(got, _categorical_plain(logits, actions, w))
+    error = {"float16": (TypeError, "float32 or bfloat16 logits"),
+             "float64": (TypeError, "float32 or bfloat16 logits"),
+             "strided": (ValueError, "logits must be contiguous"),
+             "int16": (TypeError, "int32 or int64 actions"),
+             "uint8": (TypeError, "int32 or int64 actions")}[case]
+    with pytest.raises(error[0], match=error[1]):
+        kernels.categorical_fwd(logits, actions)
+
+
+def test_categorical_wrapper_checks_on_card(cuda):
+    """The kernels' wrappers raise on actions on another device than the
+    logits and on an incoming gradient on the CPU."""
+    x, a = _categorical_inputs(79, 12, torch.float32, torch.int64, cuda)
+    with pytest.raises(ValueError, match="all inputs must lie"):
+        kernels.categorical_fwd(x, a.cpu())
+    lp, ent, lse = kernels.categorical_fwd(x, a)
+    with pytest.raises(ValueError, match="glp is on cpu"):
+        kernels.categorical_bwd(x, a, lse, ent, lp.cpu(), ent)
 
 
 if __name__ == "__main__":

@@ -341,6 +341,8 @@ def test_launch_counts_reset():
     kernels.td_lambda_err.launches = 1
     kernels.linear_scan.launches = 4
     kernels.upgo_loss.launches = 5
+    kernels.categorical_fwd.launches = 8
+    kernels.categorical_bwd.launches = 9
     kernels.lstm_layer_fused.launches_bf16 = 6
     kernels.lstm_layer_bwd_v1.launches_bf16 = 7
     kernels.reset_launch_counts()
@@ -349,6 +351,7 @@ def test_launch_counts_reset():
         "vtrace_losses": 0, "vtrace_returns_adv": 0, "gae": 0,
         "lambda_returns": 0, "td_lambda_loss": 0, "td_lambda_err": 0,
         "linear_scan": 0, "upgo_advantages": 0, "upgo_loss": 0,
+        "categorical_fwd": 0, "categorical_bwd": 0,
         "lstm_layer_fused_bf16": 0, "lstm_layer_bwd_v2_bf16": 0,
         "lstm_layer_bwd_v1_bf16": 0}
 

@@ -1,5 +1,8 @@
 """The port's categorical head and V-trace loss (di_hpc_tpu_torch.ops and
-.origin) against the JAX package's, on the CPU.
+.origin) against the JAX package's, on the CPU; and the head's route on
+the CPU (the plain body, no launch) and its kernels' wrappers where the
+CPU can check them (shapes, signatures, load width, incoming-gradient
+steps).
 
 Inputs are made with numpy from a seed and handed to both sides; the JAX
 V-trace op runs its Pallas kernels in interpret mode.  Tolerances: rtol=1e-4,
@@ -124,6 +127,159 @@ def test_categorical_head_matches_oracles_unmasked():
         origin.categorical_log_prob(torch.from_numpy(x),
                                     torch.from_numpy(a)).numpy(),
         lp.numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.float64])
+@pytest.mark.parametrize("fn", ["logp_entropy", "logp"])
+def test_categorical_cpu_calls_take_the_plain_route(fn, dtype):
+    """CPU logits of any float dtype run the plain body (no kernel launch):
+    outputs and gradients bitwise those of kernels.categorical_fwd_plain
+    and categorical_bwd_plain."""
+    from di_hpc_tpu_torch import kernels
+
+    x, a = _masked_logits()
+    xt = torch.from_numpy(x).to(dtype).requires_grad_()
+    at = torch.from_numpy(a)
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 6)).astype(np.float32))
+    kernels.reset_launch_counts()
+    out = getattr(ops, fn)(xt, at)
+    assert set(kernels.launch_counts().values()) == {0}
+    with_ent = fn == "logp_entropy"
+    out = out if with_ent else (out,)
+    (dx,) = torch.autograd.grad(out, xt, tuple(g[:len(out)]))
+    assert set(kernels.launch_counts().values()) == {0}
+    lp, ent, lse = kernels.categorical_fwd_plain(xt.detach(), at, with_ent)
+    want_dx = kernels.categorical_bwd_plain(
+        xt.detach(), at, lse, ent, g[0], g[1] if with_ent else None)
+    wants = (lp, ent) if with_ent else (lp,)
+    for got, want in zip((*out, dx), (*wants, want_dx)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert dx.dtype == dtype
+
+
+@pytest.mark.parametrize("dtype,act_dtype,strided,want,want_act", [
+    (torch.float32, torch.int32, False, torch.float32, torch.int32),
+    (torch.bfloat16, torch.int64, False, torch.bfloat16, torch.int64),
+    (torch.float16, torch.int64, False, torch.float32, torch.int64),
+    (torch.float64, torch.int16, False, torch.float32, torch.int64),
+    (torch.float32, torch.uint8, True, torch.float32, torch.int64),
+    (torch.bfloat16, torch.int32, True, torch.bfloat16, torch.int32)])
+def test_categorical_kernel_inputs(dtype, act_dtype, strided, want,
+                                   want_act):
+    """What the card's route hands the kernels: float32 or bfloat16 logits
+    as they are and any other dtype as float32, always contiguous, with the
+    same values; int32 or int64 actions as they are, any other as int64."""
+    from di_hpc_tpu_torch.ops.categorical import _kernel_inputs
+
+    x, a = _masked_logits()
+    logits = torch.from_numpy(x).to(dtype)
+    if strided:
+        logits = torch.cat([logits, logits], dim=-1)[..., :x.shape[-1]]
+    actions = torch.from_numpy(a).to(act_dtype)
+    got, got_a = _kernel_inputs(logits, actions)
+    assert got.dtype == want and got.is_contiguous()
+    assert got_a.dtype == want_act and torch.equal(got_a.long(),
+                                                   actions.long())
+    assert torch.equal(got.float(), logits.float())
+
+
+@pytest.mark.parametrize("name", ["categorical_fwd_f32",
+                                  "categorical_fwd_bf16",
+                                  "categorical_bwd_f32",
+                                  "categorical_bwd_bf16"])
+def test_categorical_kernels_are_exported_and_counted(name):
+    """Each C entry point of csrc/categorical.cu has its ctypes signature
+    (pointers, the int64 row count, the stream last) and its wrapper is
+    counted by launch_counts()."""
+    import ctypes
+
+    from di_hpc_tpu_torch import kernels
+    from di_hpc_tpu_torch.kernels import _build
+
+    restype, argtypes = _build._SIGNATURES[name]
+    assert restype is ctypes.c_int and argtypes[-1] is ctypes.c_void_p
+    assert argtypes.count(ctypes.c_longlong) == 1
+    assert len(argtypes) == (10 if "fwd" in name else 14)
+    wrapper = name.rsplit("_", 1)[0]
+    assert getattr(kernels, wrapper) in kernels.KERNEL_WRAPPERS
+    assert kernels.launch_counts()[wrapper] == \
+        getattr(kernels, wrapper).launches
+
+
+@pytest.mark.parametrize("case", ["actions_rows", "actions_rank",
+                                  "scalar_logits", "empty_row",
+                                  "no_rows", "ent_without_gent"])
+def test_categorical_wrappers_raise_on_shapes_they_do_not_take(case):
+    """The kernels' wrappers check shapes on either device: actions shaped
+    like the logits' rows, logits (..., N) with N >= 1 and a row, and ent
+    and gent together."""
+    from di_hpc_tpu_torch import kernels
+
+    x = torch.zeros(3, 4, 5)
+    a = torch.zeros(3, 4, dtype=torch.int64)
+    lse = torch.zeros(3, 4)
+    calls = {
+        "actions_rows": lambda: kernels.categorical_fwd(x, a[:2]),
+        "actions_rank": lambda: kernels.categorical_bwd(
+            x, a[..., None], lse, None, lse, None),
+        "scalar_logits": lambda: kernels.categorical_fwd(
+            torch.tensor(1.0), torch.tensor(0)),
+        "empty_row": lambda: kernels.categorical_fwd(
+            torch.zeros(3, 0), torch.zeros(3, dtype=torch.int64)),
+        "no_rows": lambda: kernels.categorical_bwd(
+            torch.zeros(0, 5), torch.zeros(0, dtype=torch.int64),
+            torch.zeros(0), None, torch.zeros(0), None),
+        "ent_without_gent": lambda: kernels.categorical_bwd(
+            x, a, lse, lse, lse, None)}
+    match = "ent and gent" if case == "ent_without_gent" else \
+        "actions must be" if case.startswith("actions") else "logits must be"
+    with pytest.raises(ValueError, match=match):
+        calls[case]()
+
+
+@pytest.mark.parametrize("N,offset,dtype,want", [
+    (128, 0, torch.float32, 4), (1000, 0, torch.float32, 4),
+    (127, 0, torch.float32, 1), (9, 0, torch.bfloat16, 1),
+    (128, 1, torch.float32, 1), (128, 2, torch.float32, 1),
+    (128, 4, torch.float32, 4), (128, 2, torch.bfloat16, 1),
+    (128, 4, torch.bfloat16, 4)])
+def test_categorical_load_width(N, offset, dtype, want):
+    """A lane reads 4 logits where N % 4 == 0 and the logits start on a
+    4-element boundary (16 bytes of float32, 8 of bf16), else 1."""
+    from di_hpc_tpu_torch.kernels.categorical import load_width
+
+    base = torch.zeros(2 * N + 8, dtype=dtype)[offset:]
+    assert load_width(N, base.data_ptr(), base.element_size()) == want
+
+
+@pytest.mark.parametrize("kind,step", [("mean", 1), ("sum", 0),
+                                       ("dense", 1), ("transposed", 1),
+                                       ("row_broadcast", 1)])
+def test_categorical_row_gradient_steps(kind, step):
+    """An incoming gradient that is one value over every row (a sum's) is
+    read in place with step 0; any other (a mean's, which autograd makes
+    dense) becomes a dense float32 plane of the logits' rows, equal to the
+    gradient."""
+    from di_hpc_tpu_torch.kernels.categorical import row_gradient
+
+    logits = torch.zeros(4, 6, 3)
+    lp = torch.zeros(4, 6, requires_grad=True)
+    rng = torch.Generator().manual_seed(5)
+    w = torch.randn(6, 4, generator=rng)
+    loss = {"mean": lambda: lp.mean(), "sum": lambda: lp.sum(),
+            "dense": lambda: (lp * w.t().contiguous()).sum(),
+            "transposed": lambda: (lp * w.t()).sum(),
+            "row_broadcast": lambda: (lp * w[:1, :].t()).sum()}[kind]()
+    (g,) = torch.autograd.grad(loss, lp)
+    got, got_step = row_gradient("categorical_bwd", "glp", g, logits)
+    assert got_step == step and got.dtype == torch.float32
+    if step == 1:
+        assert got.is_contiguous() and torch.equal(got, g)
+    else:
+        assert torch.equal(got.expand(4, 6), g) and \
+            got.stride() == (0, 0)
 
 
 @pytest.mark.parametrize("weight", [None, "TB", "B"])
